@@ -1,0 +1,401 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of Occam (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, in order; any failure ends the script with a non-zero exit code:
+
+1. Device and build: the GPU's name and power limit, the torch and CUDA
+   versions, the CUDA kernels built from ``src/repro_torch/kernels/**/
+   csrc/*.cu`` into ``build/`` (seconds printed). TF32 is turned off for
+   cuDNN and for matmuls, so every fp32 comparison is full fp32.
+2. Kernel vs plain: the fused-span kernel against its plain PyTorch
+   version on the card — small spans (k in {1,3}, stride in {1,2}, pools,
+   residual adds from a ring and from memory, spills) at out_rows 1 and 2
+   in fp32 (rtol = atol = 1e-4) and one in bf16 (5e-2); then the five
+   spans of ResNet-18 and AlexNet's span (0, 8) at full width, held to
+   max|kernel - plain| <= 1e-3 * max|plain|: deep fp32 sums (fan-in up to
+   4,608) taken in another order.
+3. Main path: ``plan(resnet18(), 3_145_728).place().compile()`` serving
+   requests of 8, 1 and 5 images at 224x224 (He-scaled random weights from
+   ``--seed``), every span on the kernel, outputs against the layer-by-
+   layer cuDNN oracle and ``report().matches_prediction``; then
+   ``examples/alexnet.plan.json`` on 4 images at 227x227. The kernel's
+   launch count is set to 0 just before each of the two paths and read
+   just after it.
+4. Times: CUDA events, median of 5 after a warm-up, per span for the
+   kernel, its plain version and the cuDNN oracle, with the span's bound
+   (multiply-adds of the taps inside the input, bytes moved once);
+   whole-``run`` time at batch 8.
+
+The line before the last is the kernels' JSON summary, one record per
+path with that path's launches, errors and times; the last line is
+``{"ok": true, "device": {...}}``. Without a visible GPU, or outside a
+checkout of the repository, the script fails before printing a result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+FP32_TFLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+C, P = "conv", "pool"
+SMALL_CASES = [
+    # (name, layer specs, h = w, in_ch) — the reference's span test grid
+    ("k1-s1", [(C, 1, 1, 0, 4), (C, 1, 1, 0, 8)], 8, 3),
+    ("k3-s1-deep", [(C, 3, 1, 1, 4), (C, 3, 1, 1, 8), (C, 3, 1, 1, 4)], 8, 3),
+    ("k5-s1", [(C, 5, 1, 2, 4), (C, 5, 1, 2, 4)], 10, 2),
+    ("k3-s2", [(C, 3, 2, 1, 4), (C, 3, 1, 1, 8)], 10, 3),
+    ("mixed-k", [(C, 5, 1, 2, 4), (C, 1, 1, 0, 8), (C, 3, 2, 1, 8)], 10, 3),
+    ("conv-pool-s2", [(C, 3, 1, 1, 4), (P, 2, 2, 0, 0), (C, 3, 2, 1, 8)],
+     12, 3),
+    ("pool-k3-s2-pad", [(C, 3, 1, 1, 4), (P, 3, 2, 1, 0)], 9, 3),
+    ("vgg-block", [(C, 3, 1, 1, 8), (C, 3, 1, 1, 8), (P, 2, 2, 0, 0),
+                   (C, 3, 1, 1, 16)], 8, 3),
+]
+
+
+def he_params(net, rng):
+    """Numpy params with weights N(0, 2 / fan_in), so activations stay O(1)
+    through a deep ReLU net, and small biases."""
+    import numpy as np
+
+    params = []
+    for layer in net.layers:
+        if layer.kind != "conv":
+            params.append({})
+            continue
+        fan_in = layer.k * layer.k * layer.in_ch
+        shape = (layer.k, layer.k, layer.in_ch, layer.out_ch)
+        w = rng.standard_normal(shape, np.float32) * np.sqrt(2.0 / fan_in)
+        b = rng.standard_normal((layer.out_ch,), np.float32) * 0.01
+        params.append({"w": w.astype(np.float32), "b": b})
+    return params
+
+
+def in_range_taps(n_out, n_in, k, stride, pad):
+    """(output position, tap) pairs along one axis whose input index lies
+    inside [0, n_in): the taps the kernel multiplies. Taps on the zero
+    padding are skipped, so they are no work."""
+    return sum(1 for r in range(n_out) for d in range(k)
+               if 0 <= r * stride - pad + d < n_in)
+
+
+def span_cost(net, a, b, batch, spill, src_keys, itemsize=4):
+    """(MACs, bytes, bound ms, bound_by) of one span launch. MACs count the
+    in-range taps of every conv (pools do no multiply-adds); bytes count
+    each input read once, each output written once, weights read once."""
+    macs = 0
+    for layer in net.layers[a:b]:
+        if layer.kind == C:
+            rows = in_range_taps(layer.out_h, layer.in_h, layer.k,
+                                 layer.stride, layer.padding)
+            cols = in_range_taps(layer.out_w, layer.in_w, layer.k,
+                                 layer.stride, layer.padding)
+            macs += rows * cols * layer.in_ch * layer.out_ch
+    macs *= batch
+    act = net.map_elems(a) + net.map_elems(b)
+    act += sum(net.map_elems(s) for s in src_keys)
+    act += sum(net.map_elems(m) for m in spill)
+    weights = sum(layer.weight_elems + (layer.out_ch if layer.kind == C
+                                        else 0) for layer in net.layers[a:b])
+    nbytes = (batch * act + weights) * itemsize
+    t_ops = 2 * macs / FP32_TFLOPS * 1e3
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return macs, nbytes, max(t_ops, t_mem), \
+        "operations" if t_ops >= t_mem else "bytes"
+
+
+def time_ms(torch, fn, reps=5):
+    """Median device time of ``fn`` over ``reps`` runs after a warm-up,
+    from CUDA events on the current stream."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible; this script measures "
+              "the port on a GPU", file=sys.stderr)
+        return 2
+
+    from repro_torch import convert, occam
+    from repro_torch.core import closure
+    from repro_torch.core.graph import chain
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_span import kernel
+    from repro_torch.kernels.fused_span.ops import (crossing_source_keys,
+                                                    span_plain_call)
+    from repro_torch.models import cnn, zoo
+    from repro_torch.occam import registry
+    from repro_torch.runtime import span_engine
+
+    # ---- 1. device and build ---------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(libs)}")
+    for path in libs.values():
+        log = path.with_suffix(".log")
+        for line in log.read_text().splitlines() if log.exists() else []:
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {path.stem}: {line.strip()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+
+    def compare(name, got, want, rtol=None, atol=None, rel=None):
+        """max|got - want|, after holding it to rtol/atol or, with ``rel``,
+        to rel * max|want|; returns (err, max|want| or None)."""
+        got, want = got.float(), want.float()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = float((got - want).abs().max())
+        if rel is not None:
+            scale = float(want.abs().max())
+            if err > rel * scale:
+                raise AssertionError(f"{name}: max|err| {err:.3e} > "
+                                     f"{rel} x max|plain| {scale:.3e}")
+            return err, scale
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{name}: {m}")
+        return err, None
+
+    # ---- 2. kernel vs plain, on the card ---------------------------------
+    small = [(name, chain(name, specs, in_h=hw, in_w=hw, in_ch=ch), 0, None)
+             for name, specs, hw, ch in SMALL_CASES]
+    res_net = chain("res-src-spill", [(C, 3, 1, 1, 4)] * 3
+                    + [(C, 3, 2, 1, 8), (C, 3, 1, 1, 8)], in_h=10, in_w=10,
+                    in_ch=3, residual_edges=((0, 2), (1, 4), (2, 5)))
+    # span (1, 4): (0, 2) crosses in from memory, (1, 4) reads ring 0,
+    # (2, 5) leaves the span, so map 2 spills
+    small.append(("res-src-spill", res_net, 1, 4))
+    n_small, small_err = 0, 0.0
+    for name, net, a, b in small:
+        b = net.n_layers if b is None else b
+        params = convert.params_from_numpy(he_params(net, rng), dev)
+        xs0 = torch.from_numpy(rng.standard_normal(
+            (2,) + net.map_shape(0), np.float32)).to(dev)
+        maps = cnn.reference_forward(params, xs0, net, collect=True)
+        spill = span_engine.span_spills(
+            net, [c for c in (a, b) if 0 < c < net.n_layers], a, b)
+        srcs = {s: maps[s] for s in crossing_source_keys(net, a, b)}
+        for out_rows in (1, 2):
+            got, got_sp = kernel.span_cuda_call(
+                maps[a], params[a:b], net, a, b, out_rows=out_rows,
+                srcs=srcs, spill=spill)
+            want, want_sp = span_plain_call(
+                maps[a], params[a:b], net, a, b, out_rows=out_rows,
+                srcs=srcs, spill=spill)
+            err, _ = compare(f"{name} t={out_rows}", got, want, 1e-4, 1e-4)
+            small_err = max(small_err, err)
+            for m in spill:
+                err, _ = compare(f"{name} spill {m}", got_sp[m], want_sp[m],
+                                 1e-4, 1e-4)
+                small_err = max(small_err, err)
+            n_small += 1
+        if name == "conv-pool-s2":
+            p16 = [{k: v.to(torch.bfloat16) for k, v in p.items()}
+                   for p in params]
+            x16 = maps[a].to(torch.bfloat16)
+            got, _ = kernel.span_cuda_call(x16, p16, net, a, b)
+            want, _ = span_plain_call(x16, p16, net, a, b)
+            compare(f"{name} bf16", got, want, 5e-2, 5e-2)
+            n_small += 1
+    torch.cuda.synchronize()
+    print(f"kernel vs plain: {n_small} small cases within fp32 1e-4 "
+          f"(bf16 5e-2); worst fp32 max|kernel-plain| {small_err:.3e}")
+
+    resnet, alexnet = zoo.resnet18(), zoo.alexnet()
+    res_params_np = he_params(resnet, rng)
+    alex_params_np = he_params(alexnet, rng)
+    res_params = convert.params_from_numpy(res_params_np, dev)
+    alex_params = convert.params_from_numpy(alex_params_np, dev)
+    xs_res = rng.standard_normal((8, 224, 224, 3), np.float32)
+    xs_alex = rng.standard_normal((4, 227, 227, 3), np.float32)
+    res_maps = cnn.reference_forward(
+        res_params, convert.array_from_numpy(xs_res, dev), resnet,
+        collect=True)
+    alex_maps = cnn.reference_forward(
+        alex_params, convert.array_from_numpy(xs_alex, dev), alexnet,
+        collect=True)
+    res_plan = occam.plan(resnet, 3_145_728)
+    if res_plan.boundaries != [12, 15, 16, 17]:
+        raise AssertionError(f"resnet18 cuts {res_plan.boundaries}")
+    spans = [("resnet18", resnet, res_params, res_maps, r.start, r.end,
+              res_plan.boundaries) for r in res_plan.routes]
+    spans.append(("alexnet", alexnet, alex_params, alex_maps, 0, 8, []))
+    # one record per main path: its own launches, errors and times
+    paths = {name: dict(launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                        bound_ms=0.0, library_ms=0.0, t_ops=0.0, t_mem=0.0)
+             for name in ("resnet18", "alexnet")}
+    span_args = []
+    for net_name, net, params, maps, a, b, cuts in spans:
+        spill = span_engine.span_spills(net, cuts, a, b)
+        src_keys = crossing_source_keys(net, a, b)
+        kw = dict(srcs={s: maps[s] for s in src_keys}, spill=spill)
+        got, got_sp = kernel.span_cuda_call(maps[a], params[a:b], net, a, b,
+                                            **kw)
+        want, want_sp = span_plain_call(maps[a], params[a:b], net, a, b,
+                                        **kw)
+        err, scale = compare(f"{net_name} span ({a}, {b})", got, want,
+                             rel=1e-3)
+        rec = paths[net_name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        for m in spill:
+            sp_err, _ = compare(f"{net_name} span ({a}, {b}) spill {m}",
+                                got_sp[m], want_sp[m], rel=1e-3)
+            rec["max_abs_err"] = max(rec["max_abs_err"], sp_err)
+        sched = closure.span_schedule(net, a, b, spill=spill)
+        print(f"{net_name} span ({a}, {b}) batch {maps[a].shape[0]}: "
+              f"max|kernel-plain| {err:.3e} (max|plain| {scale:.3e}, "
+              f"band 1e-3 x max|plain|); in_rows {sched.in_rows}, "
+              f"{sched.n_steps} steps, rings "
+              f"{sched.scratch_elems() * 4 / 1e6:.3f} MB/image; "
+              f"spill {list(spill)}, srcs {list(src_keys)}")
+        span_args.append((net_name, net, params, maps, a, b, kw))
+    torch.cuda.synchronize()
+
+    # ---- 3. main paths: counts set to 0 just before each, read just after
+    dep = res_plan.place().compile()
+    routes = [r.route for r in dep.routes]
+    if routes != ["pallas"] * 5:
+        raise AssertionError(f"resnet18 routes {routes}")
+    kernel.launches = 0
+    for n in (8, 1, 5):
+        before = kernel.launches
+        y = dep.run(res_params, xs_res[:n])
+        torch.cuda.synchronize()
+        if kernel.launches - before != 5:
+            raise AssertionError(f"request of {n}: "
+                                 f"{kernel.launches - before} launches")
+        if tuple(y.shape) != (n, 7, 7, 512):
+            raise AssertionError(f"output shape {tuple(y.shape)}")
+        err, scale = compare(f"resnet18 request of {n}", y, res_maps[-1][:n],
+                             rel=1e-3)
+        print(f"resnet18 request of {n}: 5 launches, output "
+              f"{tuple(y.shape)}, max|run-oracle| {err:.3e} "
+              f"(max|oracle| {scale:.3e})")
+    paths["resnet18"]["launches"] = kernel.launches
+    rep = dep.report()
+    if not rep.matches_prediction:
+        raise AssertionError(f"resnet18 traffic {rep}")
+    print(f"resnet18 report: {rep.images} images, measured "
+          f"{rep.measured_per_image:.0f} elems/image == predicted "
+          f"{rep.offchip_elems:.0f}: matches_prediction True")
+    alex_dep = occam.load_plan(
+        str(ROOT / "examples" / "alexnet.plan.json")).place().compile()
+    kernel.launches = 0
+    y = alex_dep.run(alex_params, xs_alex)
+    torch.cuda.synchronize()
+    paths["alexnet"]["launches"] = kernel.launches
+    if kernel.launches != 1 or [r.route for r in
+                                alex_dep.routes] != ["pallas"]:
+        raise AssertionError("alexnet plan did not run on the kernel")
+    err, scale = compare("alexnet plan", y, alex_maps[-1], rel=1e-3)
+    rep = alex_dep.report()
+    if not rep.matches_prediction:
+        raise AssertionError(f"alexnet traffic {rep}")
+    print(f"alexnet plan, 4 images: 1 launch, output {tuple(y.shape)}, "
+          f"max|run-oracle| {err:.3e} (max|oracle| {scale:.3e}), "
+          f"matches_prediction True")
+
+    # ---- 4. times -----------------------------------------------------------
+    oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
+    for net_name, net, params, maps, a, b, kw in span_args:
+        xs = maps[a]
+        batch = xs.shape[0]
+        stored = {a: xs, **kw["srcs"]}
+        k_ms = time_ms(torch, lambda: kernel.span_cuda_call(
+            xs, params[a:b], net, a, b, **kw))
+        p_ms = time_ms(torch, lambda: span_plain_call(
+            xs, params[a:b], net, a, b, **kw))
+        o_ms = time_ms(torch, lambda: oracle.run(params, net, a, b, stored,
+                                                 kw["spill"]))
+        macs, nbytes, bound, bound_by = span_cost(
+            net, a, b, batch, kw["spill"], tuple(kw["srcs"]))
+        print(f"time {net_name} span ({a}, {b}) batch {batch}: kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, cuDNN oracle "
+              f"{o_ms:.3f} ms; {macs / 1e9:.3f} GMAC in range, "
+              f"{nbytes / 1e6:.3f} MB, bound {bound:.4f} ms ({bound_by}), "
+              f"kernel at {bound / k_ms * 100:.2f}% of bound")
+        rec = paths[net_name]
+        rec["ms"] += k_ms
+        rec["plain_ms"] += p_ms
+        rec["library_ms"] += o_ms
+        rec["bound_ms"] += bound
+        rec["t_ops"] += 2 * macs / FP32_TFLOPS * 1e3
+        rec["t_mem"] += nbytes / HBM_BYTES_PER_S * 1e3
+    xs8 = convert.array_from_numpy(xs_res, dev)
+    dep.run(res_params, xs8)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        dep.run(res_params, xs8)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    run_ms = statistics.median(runs)
+    res = paths["resnet18"]
+    print(f"resnet18 Deployment.run batch 8: {run_ms:.3f} ms median of 5 "
+          f"(host clock), {8 / run_ms * 1e3:.2f} images/s; kernel sum "
+          f"{res['ms']:.3f} ms, bound sum {res['bound_ms']:.4f} ms")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          f" GB")
+
+    # times: one batch-8 run of ResNet-18's five spans, one batch-4 run of
+    # AlexNet's span; launches: each path's run in phase 3
+    print(json.dumps({"kernels": [{
+        "name": "fused_span",
+        "path": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_span/csrc/fused_span.cu",
+        "replaces": "src/repro/kernels/fused_span/kernel.py:210",
+        "launches": rec["launches"],
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": "operations" if rec["t_ops"] >= rec["t_mem"] else "bytes",
+        "library_ms": rec["library_ms"],
+    } for name, rec in paths.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

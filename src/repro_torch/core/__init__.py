@@ -1,0 +1,10 @@
+"""Occam's core planning modules (paper §III), copied from ``repro.core``.
+
+`closure` — row-plane tiles + dependence-closure arithmetic and the
+static span schedules; `partition` — the optimal-partition DP; `traffic`
+— analytical traffic models and the shared TrafficCounter; `graph` — the
+NetSpec. The STAP planner (`stap`) arrives with the pipeline slice.
+"""
+from . import closure, graph, partition, traffic  # noqa: F401
+
+__all__ = ["closure", "graph", "partition", "traffic"]

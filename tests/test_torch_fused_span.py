@@ -1,0 +1,201 @@
+"""The port's fused-span module against the reference's: the rowops twins,
+``span_forward`` on CPU tensors (the kernel's plain version) against the
+reference kernel in interpret mode, the validation errors and the
+workspace size. The CUDA kernel itself is tested in test_torch_cuda.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.graph import chain as j_chain
+from repro.kernels.fused_span import rowops as j_rowops
+from repro.kernels.fused_span.kernel import span_kernel_vmem_elems
+from repro.kernels.fused_span.ops import fused_span as j_fused_span
+from repro.kernels.fused_span.ops import span_forward as j_span_forward
+from repro_torch import convert
+from repro_torch.core import closure
+from repro_torch.core.graph import chain
+from repro_torch.kernels.fused_span import kernel, rowops
+from repro_torch.kernels.fused_span.ops import (fused_span, fused_span_ref,
+                                                span_forward,
+                                                span_kernel_scratch_elems)
+from repro_torch.models import cnn
+
+C, P = "conv", "pool"
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+# (name, specs, hw, in_ch, residual edges, span, out_rows)
+CASES = [
+    ("k1-s1", [(C, 1, 1, 0, 4), (C, 1, 1, 0, 8)], 8, 3, (), None, 1),
+    ("k3-s2", [(C, 3, 2, 1, 4), (C, 3, 1, 1, 8)], 10, 3, (), None, 1),
+    ("conv-pool-s2", [(C, 3, 1, 1, 4), (P, 2, 2, 0, 0), (C, 3, 2, 1, 8)],
+     12, 3, (), None, 2),
+    ("pool-k3-s2-pad", [(C, 3, 1, 1, 4), (P, 3, 2, 1, 0)], 9, 3, (), None,
+     1),
+    # span (1, 4): (0, 2) crosses in from memory, (1, 4) adds from ring 0,
+    # (2, 5) leaves the span so map 2 spills; stride-2 option-A shortcut
+    ("res-src-spill", [(C, 3, 1, 1, 4)] * 3 + [(C, 3, 2, 1, 8),
+                                                (C, 3, 1, 1, 8)],
+     10, 3, ((0, 2), (1, 4), (2, 5)), (1, 4), 2),
+]
+
+
+def numpy_params(net, seed):
+    rng = np.random.default_rng(seed)
+    params = []
+    for layer in net.layers:
+        if layer.kind == "conv":
+            params.append({
+                "w": rng.standard_normal(
+                    (layer.k, layer.k, layer.in_ch, layer.out_ch),
+                    np.float32) * np.float32(0.3),
+                "b": rng.standard_normal((layer.out_ch,), np.float32)
+                * np.float32(0.1)})
+        else:
+            params.append({})
+    return params
+
+
+def span_inputs(specs, hw, ch, edges, span, batch=2, seed=0):
+    """Both packages' nets, numpy params, every map of the torch oracle
+    (as numpy) and the span's (a, b, spill, src_keys)."""
+    net = chain("t", specs, in_h=hw, in_w=hw, in_ch=ch,
+                residual_edges=edges)
+    j_net = j_chain("t", specs, in_h=hw, in_w=hw, in_ch=ch,
+                    residual_edges=edges)
+    params = numpy_params(net, seed)
+    xs = np.random.default_rng(seed + 1).standard_normal(
+        (batch, hw, hw, ch), np.float32)
+    maps = cnn.reference_forward(convert.params_from_numpy(params),
+                                 torch.from_numpy(xs), net, collect=True)
+    a, b = span or (0, net.n_layers)
+    cuts = [c for c in (a, b) if 0 < c < net.n_layers]
+    spill = tuple(sorted({s for (s, t) in edges
+                          if any(s < p < t for p in cuts) and a < s < b}))
+    src_keys = tuple(sorted({s for (s, t) in edges if s < a < t <= b}))
+    return net, j_net, params, [m.numpy() for m in maps], (a, b, spill,
+                                                          src_keys)
+
+
+def test_rowops_twins_match_reference():
+    rng = np.random.default_rng(3)
+    ring = rng.standard_normal((2, 5, 9, 4), np.float32)
+    w = rng.standard_normal((3, 3, 4, 6), np.float32)
+    b = rng.standard_normal((6,), np.float32)
+    t_ring = torch.from_numpy(ring)
+    for r, stride, pad, h_prev in [(0, 1, 1, 9), (3, 1, 1, 9), (4, 2, 1, 9),
+                                   (8, 1, 1, 9)]:
+        for pad_val in (0.0, rowops.NEG_INF):
+            got = rowops.ring_window(t_ring, r, 3, stride, pad, h_prev, 5,
+                                     pad_val)
+            for i in range(2):
+                want = j_rowops.ring_window(jnp.asarray(ring[i]), r, 3,
+                                            stride, pad, h_prev, 5, pad_val)
+                np.testing.assert_array_equal(got[i].numpy(),
+                                              np.asarray(want))
+        win = rowops.ring_window(t_ring, r, 3, stride, pad, h_prev, 5, 0.0)
+        out_w = (9 + 2 * pad - 3) // stride + 1
+        got = rowops.conv_row(win, torch.from_numpy(w), torch.from_numpy(b),
+                              stride, pad, out_w)
+        pooled = rowops.pool_row(win, 3, stride, pad, out_w)
+        for i in range(2):
+            j_win = jnp.asarray(win[i].numpy())
+            want = j_rowops.conv_row(j_win, jnp.asarray(w), jnp.asarray(b),
+                                     stride, pad, out_w)
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(want),
+                                       **TOL)
+            np.testing.assert_array_equal(
+                pooled[i].numpy(),
+                np.asarray(j_rowops.pool_row(j_win, 3, stride, pad, out_w)))
+    src = rng.standard_normal((2, 8, 4), np.float32)
+    for w_t, c_t in [(4, 8), (8, 4), (8, 2), (4, 4)]:
+        got = rowops.project_row(torch.from_numpy(src), w_t, c_t)
+        for i in range(2):
+            want = j_rowops.project_row(jnp.asarray(src[i]), w_t, c_t)
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("name,specs,hw,ch,edges,span,out_rows", CASES,
+                         ids=[c[0] for c in CASES])
+def test_span_forward_cpu_matches_reference_kernel(name, specs, hw, ch,
+                                                   edges, span, out_rows):
+    """The port's span_forward on CPU tensors (the plain version) equals
+    the reference kernel run in interpret mode, output and spills."""
+    net, j_net, params, maps, (a, b, spill, src_keys) = span_inputs(
+        specs, hw, ch, edges, span)
+    got = span_forward(torch.from_numpy(maps[a]),
+                       convert.params_from_numpy(params[a:b]), net, a, b,
+                       out_rows=out_rows,
+                       srcs={s: torch.from_numpy(maps[s]) for s in src_keys},
+                       spill=spill)
+    want = j_span_forward(jnp.asarray(maps[a]),
+                          [{k: jnp.asarray(v) for k, v in p.items()}
+                           for p in params[a:b]], j_net, a, b,
+                          interpret=True, out_rows=out_rows,
+                          srcs={s: jnp.asarray(maps[s]) for s in src_keys},
+                          spill=spill)
+    if spill:
+        (got, got_sp), (want, want_sp) = got, want
+        for m in spill:
+            np.testing.assert_allclose(got_sp[m].numpy(),
+                                       np.asarray(want_sp[m]), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                               err_msg=name)
+    np.testing.assert_allclose(got.numpy(), maps[b], **TOL, err_msg=name)
+
+
+def test_legacy_fused_span_matches_oracle_and_reference():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((8, 8, 4), np.float32)
+    w1 = rng.standard_normal((3, 3, 4, 8), np.float32) * np.float32(0.2)
+    b1 = rng.standard_normal((8,), np.float32) * np.float32(0.1)
+    w2 = rng.standard_normal((3, 3, 8, 4), np.float32) * np.float32(0.2)
+    b2 = rng.standard_normal((4,), np.float32) * np.float32(0.1)
+    args = [torch.from_numpy(v) for v in (x, w1, b1, w2, b2)]
+    got = fused_span(*args)
+    np.testing.assert_allclose(got.numpy(), fused_span_ref(*args).numpy(),
+                               **TOL)
+    want = j_fused_span(*[jnp.asarray(v) for v in (x, w1, b1, w2, b2)],
+                        interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError):
+        fused_span(args[0], torch.zeros(2, 2, 4, 4), args[2],
+                   torch.zeros(2, 2, 4, 4), args[4])
+
+
+def test_missing_crossing_source_raises():
+    name, specs, hw, ch, edges, span, _ = CASES[-1]
+    net, _j, params, maps, (a, b, spill, _src) = span_inputs(
+        specs, hw, ch, edges, span)
+    xs = torch.from_numpy(maps[a])
+    tparams = convert.params_from_numpy(params[a:b])
+    with pytest.raises(ValueError, match="residual sources"):
+        span_forward(xs, tparams, net, a, b, spill=spill)
+    with pytest.raises(ValueError, match="residual sources"):
+        kernel.span_cuda_call(xs, tparams, net, a, b, spill=spill)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.span_cuda_call(xs, tparams, net, a, b, spill=spill,
+                              srcs={0: torch.from_numpy(maps[0])})
+    with pytest.raises(ValueError, match="bad span"):
+        span_forward(xs, tparams, net, 4, 1)
+
+
+@pytest.mark.parametrize("out_rows", [1, 2])
+@pytest.mark.parametrize("name,specs,hw,ch,edges,span,_t", CASES,
+                         ids=[c[0] for c in CASES])
+def test_workspace_is_exactly_the_closure(name, specs, hw, ch, edges, span,
+                                          _t, out_rows):
+    """The kernel's ring workspace per image is |DC(a, b)| — the reference
+    kernel's VMEM scratch — and the descriptor's ring offsets tile it."""
+    net, j_net, _p, _m, (a, b, spill, src_keys) = span_inputs(
+        specs, hw, ch, edges, span)
+    scratch, weights = span_kernel_scratch_elems(net, a, b, out_rows)
+    assert scratch == closure.span_closure_elems(net, a, b, out_rows)
+    assert scratch + weights == \
+        closure.span_footprint_elems(net, a, b, out_rows)
+    assert (scratch, weights) == span_kernel_vmem_elems(j_net, a, b,
+                                                        out_rows)
+    sched = closure.span_schedule(net, a, b, spill=spill, out_rows=out_rows)
+    desc = kernel._descriptor(net, a, b, sched, spill, src_keys)
+    assert desc[:3] == [b - a + 1, sched.in_rows, sched.n_steps]
