@@ -28,6 +28,29 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    (multiply-adds of the taps inside the input, bytes moved once);
    whole-``run`` time at batch 8.
 
+Then the LM serving path, Llama-3.2-1B at its full published width
+(16 layers x d_model 2048, 32/8 heads of 64, d_ff 8192, vocab 128,256;
+fp32, random weights from ``--seed``):
+
+5. Flash kernel vs plain, on the card: the reference's test grid (GQA,
+   ragged, cross lengths, decode rows, D = 16..128) and one Sq > Skv causal
+   case in fp32 (rtol = atol = 2e-5), two bf16 cases (5e-2), and the
+   slice's full-width shapes, q (4, 32, 1024, 64) against k/v
+   (4, 8, 1024, 64) and a ragged (1, 32, 200, 64) prompt, held to
+   max|kernel - plain| <= 1e-3 * max|plain|.
+6. Main path ``llama3.2-1b-serve``: ``build_model`` on the GPU, then three
+   requests through ``launch.serve.generate`` (batch x prompt -> gen:
+   4 x 1024 -> 32, 1 x 200 -> 16, 4 x 32 -> 16), one kernel launch per
+   layer in each prefill (48 in all; decode adds none); the first
+   request's prefill logits against the ``attn_impl="chunked"`` prefill
+   within 1e-3 * max|chunked|.
+7. Times on the first request's shape: the kernel, its plain version and
+   ``scaled_dot_product_attention`` (CUDA events, median of 5 after a
+   warm-up) beside the kernel's bound; the whole prefill and one decode
+   step; peak device memory. Then ``torch.profiler`` records one more
+   prefill and one decode step: the device's busy time against the host
+   clock, and the kernels that take the most device time.
+
 The line before the last is the kernels' JSON summary, one record per
 path with that path's launches, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible GPU, or outside a
@@ -62,6 +85,27 @@ SMALL_CASES = [
     ("vgg-block", [(C, 3, 1, 1, 8), (C, 3, 1, 1, 8), (P, 2, 2, 0, 0),
                    (C, 3, 1, 1, 16)], 8, 3),
 ]
+
+FLASH_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, causal): the reference's flash-attention
+    # test grid, slow cases included, then one Sq > Skv causal case that
+    # pins the clamped offset max(Skv - Sq, 0)
+    (2, 4, 2, 64, 64, 32, True),
+    (1, 4, 4, 48, 48, 16, False),
+    (2, 8, 2, 32, 96, 64, True),
+    (1, 2, 1, 1, 128, 32, False),
+    (1, 2, 1, 1, 100, 32, True),
+    (2, 4, 4, 80, 80, 64, True),
+    (1, 16, 2, 64, 64, 128, True),
+    (1, 4, 2, 48, 32, 16, True),
+]
+FLASH_BF16_CASES = [(1, 4, 2, 64, 64, 64, True), (1, 2, 1, 1, 96, 32, False)]
+# Llama-3.2-1B's attention at the slice's prefill shapes
+FLASH_FULL_WIDTH = [(4, 32, 8, 1024, 1024, 64, True),
+                    (1, 32, 8, 200, 200, 64, True)]
+# (batch, prompt length, tokens to generate) of the three requests
+LM_REQUESTS = [(4, 1024, 32), (1, 200, 16), (4, 32, 16)]
+LM_PATH = "llama3.2-1b-serve"
 
 
 def he_params(net, rng):
@@ -115,6 +159,22 @@ def span_cost(net, a, b, batch, spill, src_keys, itemsize=4):
         "operations" if t_ops >= t_mem else "bytes"
 
 
+def flash_cost(b, hq, hkv, sq, sk, d, causal, itemsize=4):
+    """(FLOP, bytes, bound ms, bound_by) of one flash-attention call. FLOP
+    count 4 * d per (query, key) pair the mask lets through (2 * d for
+    q . k, 2 * d for p * v); bytes count q and o once and k and v once per
+    kv head."""
+    offset = max(sk - sq, 0)
+    pairs = (sum(min(r + offset + 1, sk) for r in range(sq)) if causal
+             else sq * sk)
+    flop = 4 * d * pairs * b * hq
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * itemsize
+    t_ops = flop / FP32_TFLOPS * 1e3
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return flop, nbytes, max(t_ops, t_mem), \
+        "operations" if t_ops >= t_mem else "bytes"
+
+
 def time_ms(torch, fn, reps=5):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up,
     from CUDA events on the current stream."""
@@ -129,6 +189,191 @@ def time_ms(torch, fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def trace_breakdown(torch, name, fn, top=8):
+    """Profile one call of ``fn`` (after a warm-up): print the host-clock
+    time, the device's busy time and idle share, and the ``top`` kernels
+    by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    idle = max(0.0, 1 - busy_ms / wall_ms) * 100
+    print(f"trace {name}: host clock {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle {idle:.2f}%")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.self_device_time_total / 1e3 / busy_ms * 100:6.2f}% "
+              f"x{e.count:<5d} {e.key[:90]}")
+
+
+def lm_serving(torch, seed, compare) -> dict:
+    """Phases 5-7: the flash kernel against its plain version, Llama-3.2-1B
+    served at full width through ``generate``, and times. Returns the
+    kernel's record for the ``kernels`` line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_plain_call)
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model, make_batch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype=torch.float32):
+        return [torch.randn(shape, generator=gen).to(dev, dtype)
+                for shape in ((b, hq, sq, d), (b, hkv, sk, d),
+                              (b, hkv, sk, d))]
+
+    # ---- 5. flash kernel vs plain, on the card ---------------------------
+    worst = 0.0
+    for case in FLASH_CASES:
+        q, k, v = qkv(*case[:-1])
+        got = fkernel.flash_attention_cuda_call(q, k, v, causal=case[-1])
+        want = flash_attention_plain_call(q, k, v, causal=case[-1])
+        err, _ = compare(f"flash {case}", got, want, 2e-5, 2e-5)
+        worst = max(worst, err)
+    for case in FLASH_BF16_CASES:
+        q, k, v = qkv(*case[:-1], dtype=torch.bfloat16)
+        got = fkernel.flash_attention_cuda_call(q, k, v, causal=case[-1])
+        want = flash_attention_plain_call(q, k, v, causal=case[-1])
+        compare(f"flash bf16 {case}", got, want, 5e-2, 5e-2)
+    print(f"flash kernel vs plain: {len(FLASH_CASES)} fp32 cases within "
+          f"2e-5 (worst max|kernel-plain| {worst:.3e}), "
+          f"{len(FLASH_BF16_CASES)} bf16 cases within 5e-2")
+    full_err = 0.0
+    for case in FLASH_FULL_WIDTH:
+        q, k, v = qkv(*case[:-1])
+        got = fkernel.flash_attention_cuda_call(q, k, v, causal=case[-1])
+        want = flash_attention_plain_call(q, k, v, causal=case[-1])
+        err, scale = compare(f"flash full width {case}", got, want,
+                             rel=1e-3)
+        full_err = max(full_err, err)
+        print(f"flash full width q {case[0], case[1], case[3], case[5]} "
+              f"kv heads {case[2]}: max|kernel-plain| {err:.3e} "
+              f"(max|plain| {scale:.3e}, band 1e-3 x max|plain|)")
+    torch.cuda.synchronize()
+
+    # ---- 6. main path: Llama-3.2-1B served at full width ----------------
+    cfg = get_config("llama3.2-1b")
+    width = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.d_head, cfg.d_ff, cfg.vocab)
+    if width != (16, 2048, 32, 8, 64, 8192, 128256):
+        raise AssertionError(f"llama3.2-1b config {width}")
+    api = build_model(cfg, dtype=torch.float32)
+    if api.device.type != "cuda":
+        raise AssertionError(f"model on {api.device}")
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{LM_PATH}: {n_params} parameters (fp32, "
+          f"{n_params * 4 / 1e9:.3f} GB) drawn in "
+          f"{time.perf_counter() - t0:.2f} s; {width[0]} layers x "
+          f"{width[1]}, {width[2]}/{width[3]} heads of {width[4]}, d_ff "
+          f"{width[5]}, vocab {width[6]}")
+    prompts = []
+    for i, (b, s, _) in enumerate(LM_REQUESTS):
+        prompt = make_batch(cfg, b, s, device=dev,
+                            generator=torch.Generator().manual_seed(
+                                seed + 1 + i))
+        prompt.pop("labels")
+        prompts.append(prompt)
+    fkernel.launches = 0
+    outs = []
+    for prompt, (b, s, g) in zip(prompts, LM_REQUESTS):
+        before = fkernel.launches
+        out = generate(api, params, prompt, g)
+        toks = out["tokens"]
+        if fkernel.launches - before != cfg.n_layers:
+            raise AssertionError(f"request {b} x {s}: "
+                                 f"{fkernel.launches - before} launches")
+        if tuple(toks.shape) != (b, g) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab_padded:
+            raise AssertionError(f"request {b} x {s}: tokens "
+                                 f"{tuple(toks.shape)}")
+        outs.append(out)
+        print(f"{LM_PATH} request batch {b} prompt {s} gen {g}: "
+              f"{cfg.n_layers} launches, tokens {tuple(toks.shape)}, "
+              f"prefill_s {out['prefill_s']:.6f}, decode_tok_per_s "
+              f"{out['decode_tok_per_s']:.3f}")
+    launches = fkernel.launches
+    if launches != cfg.n_layers * len(LM_REQUESTS):
+        raise AssertionError(f"{LM_PATH}: {launches} launches")
+
+    (b, s, g), prompt = LM_REQUESTS[0], prompts[0]
+    chunked = build_model(cfg, dtype=torch.float32, attn_impl="chunked")
+    logits, _ = api.prefill(params, prompt, s + g)
+    want, _ = chunked.prefill(params, prompt, s + g)
+    if tuple(logits.shape) != (b, 1, cfg.vocab_padded):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    err, scale = compare("prefill logits, flash vs chunked", logits, want,
+                         rel=1e-3)
+    ref_toks = generate(chunked, params, prompt, g)["tokens"]
+    same = (outs[0]["tokens"] == ref_toks).int().cumprod(dim=1).sum(dim=1)
+    print(f"{LM_PATH} request 1 prefill logits: max|flash-chunked| "
+          f"{err:.3e} (max|chunked| {scale:.3e}, band 1e-3 x "
+          f"max|chunked|); leading greedy tokens equal to the chunked "
+          f"path's, per row: {same.tolist()} of {g}")
+
+    # ---- 7. times on the first request's shape ---------------------------
+    case = (b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.d_head, True)
+    q, k, v = qkv(*case[:-1])
+    k_ms = time_ms(torch, lambda: fkernel.flash_attention_cuda_call(
+        q, k, v, causal=True))
+    p_ms = time_ms(torch, lambda: flash_attention_plain_call(
+        q, k, v, causal=True))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+
+    compare("scaled_dot_product_attention vs plain", sdpa(),
+            flash_attention_plain_call(q, k, v, causal=True), rel=1e-3)
+    l_ms = time_ms(torch, sdpa)
+    flop, nbytes, bound, bound_by = flash_cost(*case)
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = time_ms(torch, lambda: api.prefill(params, prompt, s + g))
+    _, caches = api.prefill(params, prompt, s + g)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    decode_ms = time_ms(torch, lambda: api.decode_step(params, tok, caches,
+                                                       s))
+    n = cfg.n_layers
+    print(f"time flash attention {case[:-1]} causal fp32: kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, scaled_dot_product_attention "
+          f"{l_ms:.4f} ms; {flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB, "
+          f"bound {bound:.4f} ms ({bound_by}), kernel at "
+          f"{bound / k_ms * 100:.2f}% of bound")
+    print(f"time {LM_PATH} request 1 (batch {b}, prompt {s}): prefill "
+          f"{prefill_ms:.3f} ms (CUDA events, median of 5), of which "
+          f"{n} kernel calls {n * k_ms:.3f} ms = "
+          f"{n * k_ms / prefill_ms * 100:.2f}%; decode step "
+          f"{decode_ms:.3f} ms, {b / decode_ms * 1e3:.2f} tokens/s")
+    print(f"peak device memory during the timed prefill and decode "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    trace_breakdown(torch, f"{LM_PATH} prefill",
+                    lambda: api.prefill(params, prompt, s + g))
+    trace_breakdown(torch, f"{LM_PATH} decode step",
+                    lambda: api.decode_step(params, tok, caches, s))
+    # times: one prefill of the first request, 16 calls
+    return {"name": "flash_attention", "path": LM_PATH, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:111",
+            "launches": launches, "max_abs_err": full_err, "ms": n * k_ms,
+            "plain_ms": n * p_ms, "bound_ms": n * bound,
+            "bound_by": bound_by, "library_ms": n * l_ms}
 
 
 def main() -> int:
@@ -375,8 +620,10 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")
 
-    # times: one batch-8 run of ResNet-18's five spans, one batch-4 run of
-    # AlexNet's span; launches: each path's run in phase 3
+    flash_rec = lm_serving(torch, args.seed, compare)
+
+    # fused-span times: one batch-8 run of ResNet-18's five spans, one
+    # batch-4 run of AlexNet's span; launches: each path's run in phase 3
     print(json.dumps({"kernels": [{
         "name": "fused_span",
         "path": name,
@@ -390,7 +637,7 @@ def main() -> int:
         "bound_ms": rec["bound_ms"],
         "bound_by": "operations" if rec["t_ops"] >= rec["t_mem"] else "bytes",
         "library_ms": rec["library_ms"],
-    } for name, rec in paths.items()]}))
+    } for name, rec in paths.items()] + [flash_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,16 +19,28 @@ COPIES = [
     "core/graph.py", "core/closure.py", "core/partition.py",
     "core/traffic.py", "models/zoo.py", "occam/registry.py",
     "occam/fleet.py", "occam/quant/policy.py", "occam/quant/footprint.py",
-]
+    "configs/__init__.py", "configs/base.py",
+] + sorted(f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob(
+    "*.py") if p.name not in ("__init__.py", "base.py"))
+
+# the one line of a copy that names its own package in a string
+RENAMED = {"configs/__init__.py": ('f"repro.configs.{mod}"',
+                                   'f"repro_torch.configs.{mod}"')}
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_matches_reference_source(rel):
     """Each copied module is the reference's text with only its absolute
-    ``repro.`` imports renamed to ``repro_torch.``."""
+    ``repro.`` imports renamed to ``repro_torch.`` (and, in
+    ``configs/__init__.py``, the package named in its import string)."""
     ref = (SRC / "repro" / rel).read_text()
     port = (SRC / "repro_torch" / rel).read_text()
-    assert port == ref.replace("from repro.", "from repro_torch.")
+    ref = ref.replace("from repro.", "from repro_torch.")
+    if rel in RENAMED:
+        old, new = RENAMED[rel]
+        assert ref.count(old) == 1
+        ref = ref.replace(old, new)
+    assert port == ref
 
 
 CAPACITIES = [786_432, 3_145_728, 12_582_912]

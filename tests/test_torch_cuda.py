@@ -1,20 +1,28 @@
-"""GPU-only tests of the port: the CUDA fused-span kernel against its plain
-PyTorch version, and a deployment on the GPU against the same deployment
-on the CPU.
+"""GPU-only tests of the port: the CUDA fused-span and flash-attention
+kernels against their plain PyTorch versions, a deployment on the GPU
+against the same deployment on the CPU, and the LM's prefill and decode on
+the GPU against the CPU.
 
 This file imports neither JAX nor ``repro``, so it runs on a GPU machine
 that has only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``. Without a visible GPU each test skips itself.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import convert, occam
+from repro_torch.configs import get_smoke
 from repro_torch.core.graph import chain
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain_call
 from repro_torch.kernels.fused_span import kernel
 from repro_torch.kernels.fused_span.ops import span_plain_call
+from repro_torch.launch.serve import generate
 from repro_torch.models import cnn
+from repro_torch.models.api import build_model, make_batch
 
 C, P = "conv", "pool"
 
@@ -37,8 +45,8 @@ CASES = [
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the fused-span kernel has no CPU "
-                    "mode (its plain version is tested on the CPU)")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU "
+                    "mode (their plain versions are tested on the CPU)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -124,3 +132,95 @@ def test_deployment_on_gpu_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert gpu.report().matches_prediction
     assert gpu.counter.total == cpu.counter.total
+
+
+FLASH_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, causal): the reference's grid, slow cases
+    # included, and one Sq > Skv causal case for the clamped offset
+    (2, 4, 2, 64, 64, 32, True),
+    (1, 4, 4, 48, 48, 16, False),
+    (2, 8, 2, 32, 96, 64, True),
+    (1, 2, 1, 1, 128, 32, False),
+    (1, 2, 1, 1, 100, 32, True),
+    (2, 4, 4, 80, 80, 64, True),
+    (1, 16, 2, 64, 64, 128, True),
+    (1, 4, 2, 48, 32, 16, True),
+]
+
+
+def flash_inputs(case, dev, dtype=torch.float32, seed=0):
+    b, hq, hkv, sq, sk, d, _ = case
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dev, dtype)
+            for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[str(c) for c in FLASH_CASES])
+def test_flash_kernel_matches_plain_f32(cuda, case):
+    """fp32 within the reference test's 2e-5 band; one counted launch."""
+    q, k, v = flash_inputs(case, cuda)
+    before = flash_kernel.launches
+    got = flash_kernel.flash_attention_cuda_call(q, k, v, causal=case[-1])
+    assert flash_kernel.launches == before + 1
+    want = flash_attention_plain_call(q, k, v, causal=case[-1])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", [(1, 4, 2, 64, 64, 64, True),
+                                  (1, 2, 1, 1, 96, 32, False)])
+def test_flash_kernel_matches_plain_half(cuda, case, dtype):
+    q, k, v = flash_inputs(case, cuda, dtype, seed=7)
+    got = flash_kernel.flash_attention_cuda_call(q, k, v, causal=case[-1])
+    assert got.dtype == dtype
+    want = flash_attention_plain_call(q, k, v, causal=case[-1])
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_reads_strided_views_and_valid_lengths(cuda, causal):
+    """(B, S, H, D) activations go in as transposed views, without a copy;
+    kv rows past seq_k_valid are masked and the causal offset comes from
+    the valid lengths."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 70, 8, 64), generator=g).to(cuda).transpose(1, 2)
+    k = torch.randn((2, 130, 2, 64), generator=g).to(cuda).transpose(1, 2)
+    v = torch.randn((2, 130, 2, 64), generator=g).to(cuda).transpose(1, 2)
+    kw = dict(causal=causal, seq_q_valid=60, seq_k_valid=111)
+    got = flash_kernel.flash_attention_cuda_call(q, k, v, **kw)
+    assert got.stride() == q.stride()
+    want = flash_attention_plain_call(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_llama_smoke_serving_on_gpu_matches_cpu(cuda):
+    """The same parameters on both devices: GPU prefill (one kernel launch
+    per layer) and decode logits match the CPU's plain-version path, and
+    greedy generation emits the same tokens."""
+    cfg = get_smoke("llama3.2-1b")
+    cpu_api = build_model(cfg, dtype=torch.float32, device="cpu")
+    gpu_api = build_model(cfg, dtype=torch.float32)
+    assert gpu_api.device.type == "cuda"
+    params = cpu_api.init(torch.Generator().manual_seed(0))
+    gpu_params = copy.deepcopy(params).to(cuda)
+    prompt = make_batch(cfg, 2, 40, generator=torch.Generator().manual_seed(1))
+    prompt.pop("labels")
+    before = flash_kernel.launches
+    got, got_caches = gpu_api.prefill(gpu_params, prompt, 48)
+    assert flash_kernel.launches == before + cfg.n_layers
+    want, want_caches = cpu_api.prefill(params, prompt, 48)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    tok = want[:, -1].argmax(-1)[:, None]
+    got, _ = gpu_api.decode_step(gpu_params, tok, got_caches, 40)
+    want, _ = cpu_api.decode_step(params, tok, want_caches, 40)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    out_gpu = generate(gpu_api, gpu_params, prompt, 8)
+    out_cpu = generate(cpu_api, params, prompt, 8)
+    assert torch.equal(out_gpu["tokens"].cpu(), out_cpu["tokens"])

@@ -28,7 +28,10 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.fused_span.kernel" in mods
+    for mod in ("repro_torch.kernels.fused_span.kernel",
+                "repro_torch.kernels.flash_attention.kernel",
+                "repro_torch.launch.serve"):
+        assert mod in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
