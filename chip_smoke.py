@@ -51,6 +51,29 @@ fp32, random weights from ``--seed``):
    prefill and one decode step: the device's busy time against the host
    clock, and the kernels that take the most device time.
 
+Then the Mamba2 serving path, Mamba2-1.3B at its full published width
+(48 layers x d_model 2048, d_inner 4096, 64 SSD heads of 64, d_state 128,
+1 group, vocab 50,280; fp32, random weights from ``--seed``), after the
+Llama path's tensors are freed and the peak-memory counter reset:
+
+8. SSD-scan kernel vs plain, on the card: the reference's test grid
+   (slow cases included) within 2e-5 x max(|plain|, 1) in fp32 and its
+   bf16 case within 5e-2, one case with a nonzero state in and the state
+   out, and the slice's full-width shapes, x (4, 1024, 64, 64) against
+   b/c (4, 1024, 1, 128) and a ragged (1, 200, ...) prompt, y and final
+   state held to max|kernel - plain| <= 1e-3 * max|plain|.
+9. Main path ``mamba2-1.3b-serve``: ``build_model`` on the GPU, then the
+   same three requests through ``launch.serve.generate``, one kernel
+   launch per layer in each prefill (144 in all; decode adds none; the
+   flash kernel is not launched); the first request's prefill logits and
+   every layer's SSM state and conv window against the
+   ``ssd_impl="chunked"`` prefill within 1e-3 * max|chunked|.
+10. Times on the first request's shape: the kernel, its plain version and
+   the chunked twin (CUDA events, median of 5 after a warm-up) beside the
+   kernel's bound, counted from the recurrence (4 N P FLOP per token and
+   head); the whole prefill and one decode step; peak device memory; a
+   ``torch.profiler`` breakdown of one prefill and one decode step.
+
 The line before the last is the kernels' JSON summary, one record per
 path with that path's launches, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible GPU, or outside a
@@ -59,6 +82,7 @@ checkout of the repository, the script fails before printing a result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -106,6 +130,21 @@ FLASH_FULL_WIDTH = [(4, 32, 8, 1024, 1024, 64, True),
 # (batch, prompt length, tokens to generate) of the three requests
 LM_REQUESTS = [(4, 1024, 32), (1, 200, 16), (4, 32, 16)]
 LM_PATH = "llama3.2-1b-serve"
+
+SSD_CASES = [
+    # (B, T, H, G, P, N, chunk): the reference's SSD-scan test grid, slow
+    # cases included; the chunk is the plain version's (the kernel's is 64)
+    (2, 128, 4, 1, 16, 8, 32),
+    (1, 100, 4, 2, 32, 16, 32),
+    (1, 64, 2, 2, 8, 4, 64),
+    (1, 256, 8, 1, 64, 128, 64),
+    (2, 96, 4, 4, 16, 16, 16),
+]
+SSD_BF16_CASE = (1, 128, 4, 1, 16, 16, 32)
+SSD_STATE_CASE = (2, 100, 4, 2, 32, 16, 32)
+# Mamba2-1.3B's scan at the slice's prefill shapes: (B, T, H, G, P, N)
+SSD_FULL_WIDTH = [(4, 1024, 64, 1, 64, 128), (1, 200, 64, 1, 64, 128)]
+MAMBA_PATH = "mamba2-1.3b-serve"
 
 
 def he_params(net, rng):
@@ -169,6 +208,21 @@ def flash_cost(b, hq, hkv, sq, sk, d, causal, itemsize=4):
              else sq * sk)
     flop = 4 * d * pairs * b * hq
     nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * itemsize
+    t_ops = flop / FP32_TFLOPS * 1e3
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return flop, nbytes, max(t_ops, t_mem), \
+        "operations" if t_ops >= t_mem else "bytes"
+
+
+def ssd_cost(bsz, t, h, g, p, n, state_in, itemsize=4):
+    """(FLOP, bytes, bound ms, bound_by) of one SSD-scan call, counted
+    from the recurrence and not from any chunking: per token and head, a
+    multiply-add per state element for the update and one for the
+    read-out, 4 N P FLOP. Bytes: x, y, a, B and C once each, the final
+    state once, and the state in once when one is given."""
+    flop = 4 * n * p * bsz * t * h
+    nbytes = (2 * bsz * t * h * p + bsz * t * h + 2 * bsz * t * g * n) \
+        * itemsize + (2 if state_in else 1) * bsz * h * n * p * 4
     t_ops = flop / FP32_TFLOPS * 1e3
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     return flop, nbytes, max(t_ops, t_mem), \
@@ -374,6 +428,217 @@ def lm_serving(torch, seed, compare) -> dict:
             "launches": launches, "max_abs_err": full_err, "ms": n * k_ms,
             "plain_ms": n * p_ms, "bound_ms": n * bound,
             "bound_by": bound_by, "library_ms": n * l_ms}
+
+
+def mamba_serving(torch, seed, compare) -> dict:
+    """Phases 8-10: the SSD-scan kernel against its plain version,
+    Mamba2-1.3B served at full width through ``generate``, and times.
+    Returns the kernel's record for the ``kernels`` line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain_call
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import mamba
+    from repro_torch.models.api import build_model, make_batch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+
+    def scan_inputs(bsz, t, h, g, p, n, dtype=torch.float32):
+        x = torch.randn((bsz, t, h, p), generator=gen)
+        a = -torch.nn.functional.softplus(torch.randn((bsz, t, h),
+                                                      generator=gen))
+        b = torch.randn((bsz, t, g, n), generator=gen) * 0.5
+        c = torch.randn((bsz, t, g, n), generator=gen) * 0.5
+        return [v.to(dev, dtype) for v in (x, a, b, c)]
+
+    def close_scaled(name, got, want, atol):
+        """The reference test's band, atol * max(max|plain|, 1)."""
+        scale = max(float(want.float().abs().max()), 1.0)
+        err, _ = compare(name, got.float() / scale, want.float() / scale,
+                         0.0, atol)
+        return err * scale
+
+    # ---- 8. SSD-scan kernel vs plain, on the card -------------------------
+    worst = 0.0
+    for case in SSD_CASES:
+        x, a, b, c = scan_inputs(*case[:-1])
+        got, _ = skernel.ssd_scan_cuda_call(x, a, b, c)
+        want, _ = ssd_scan_plain_call(x, a, b, c, chunk=case[-1])
+        worst = max(worst, close_scaled(f"ssd {case}", got, want, 2e-5))
+    x, a, b, c = scan_inputs(*SSD_BF16_CASE[:-1], dtype=torch.bfloat16)
+    got, _ = skernel.ssd_scan_cuda_call(x, a, b, c)
+    want, _ = ssd_scan_plain_call(x, a, b, c, chunk=SSD_BF16_CASE[-1])
+    close_scaled(f"ssd bf16 {SSD_BF16_CASE}", got, want, 5e-2)
+    bsz, t, h, g, p, n, chunk = SSD_STATE_CASE
+    x, a, b, c = scan_inputs(bsz, t, h, g, p, n)
+    s0 = torch.randn((bsz, h, n, p), generator=gen).to(dev)
+    got, got_s = skernel.ssd_scan_cuda_call(x, a, b, c, state0=s0,
+                                            return_state=True)
+    want, want_s = ssd_scan_plain_call(x, a, b, c, chunk=chunk, state0=s0,
+                                       return_state=True)
+    worst = max(worst,
+                close_scaled(f"ssd state in {SSD_STATE_CASE} y", got, want,
+                             2e-5),
+                close_scaled(f"ssd state in {SSD_STATE_CASE} state", got_s,
+                             want_s, 2e-5))
+    print(f"ssd kernel vs plain: {len(SSD_CASES) + 1} fp32 cases (one with "
+          f"state in and out) within 2e-5 x max(|plain|, 1) (worst "
+          f"max|kernel-plain| {worst:.3e}), 1 bf16 case within 5e-2")
+    cfg = get_config("mamba2-1.3b")
+    full_err = 0.0
+    for shape in SSD_FULL_WIDTH:
+        bsz, t, h, g, p, n = shape
+        x, a, b, c = scan_inputs(*shape)
+        s0 = torch.zeros((bsz, h, n, p), device=dev)
+        got, got_s = skernel.ssd_scan_cuda_call(x, a, b, c, state0=s0,
+                                                return_state=True)
+        want, want_s = ssd_scan_plain_call(x, a, b, c, chunk=cfg.ssm.chunk,
+                                           state0=s0, return_state=True)
+        err, scale = compare(f"ssd full width {shape} y", got, want,
+                             rel=1e-3)
+        s_err, s_scale = compare(f"ssd full width {shape} state", got_s,
+                                 want_s, rel=1e-3)
+        full_err = max(full_err, err, s_err)
+        print(f"ssd full width x {(bsz, t, h, p)} b/c {(bsz, t, g, n)}: "
+              f"max|kernel-plain| y {err:.3e} (max|plain| {scale:.3e}), "
+              f"state {s_err:.3e} (max|plain| {s_scale:.3e}); band 1e-3 x "
+              f"max|plain|")
+    torch.cuda.synchronize()
+
+    # ---- 9. main path: Mamba2-1.3B served at full width -------------------
+    ssm = cfg.ssm
+    d = cfg.d_model
+    width = (cfg.n_layers, d, ssm.d_inner(d), ssm.n_ssm_heads(d),
+             ssm.head_dim, ssm.d_state, ssm.n_groups, cfg.vocab)
+    if width != (48, 2048, 4096, 64, 64, 128, 1, 50280):
+        raise AssertionError(f"mamba2-1.3b config {width}")
+    api = build_model(cfg, dtype=torch.float32)
+    if api.device.type != "cuda":
+        raise AssertionError(f"model on {api.device}")
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.parameters())
+    print(f"{MAMBA_PATH}: {n_params} parameters (fp32, "
+          f"{n_params * 4 / 1e9:.3f} GB; the config's count without norm "
+          f"and conv-bias vectors {cfg.param_count()[0]}) drawn in "
+          f"{time.perf_counter() - t0:.2f} s; {width[0]} layers x "
+          f"{width[1]}, d_inner {width[2]}, {width[3]} SSD heads of "
+          f"{width[4]}, d_state {width[5]}, {width[6]} group, vocab "
+          f"{width[7]}")
+    prompts = []
+    for i, (b, s, _) in enumerate(LM_REQUESTS):
+        prompt = make_batch(cfg, b, s, device=dev,
+                            generator=torch.Generator().manual_seed(
+                                seed + 1 + i))
+        prompt.pop("labels")
+        prompts.append(prompt)
+    flash_before = fkernel.launches
+    skernel.launches = 0
+    outs = []
+    for prompt, (b, s, g) in zip(prompts, LM_REQUESTS):
+        before = skernel.launches
+        out = generate(api, params, prompt, g)
+        toks = out["tokens"]
+        if skernel.launches - before != cfg.n_layers:
+            raise AssertionError(f"request {b} x {s}: "
+                                 f"{skernel.launches - before} launches")
+        if tuple(toks.shape) != (b, g) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab_padded:
+            raise AssertionError(f"request {b} x {s}: tokens "
+                                 f"{tuple(toks.shape)}")
+        outs.append(out)
+        print(f"{MAMBA_PATH} request batch {b} prompt {s} gen {g}: "
+              f"{cfg.n_layers} launches, tokens {tuple(toks.shape)}, "
+              f"prefill_s {out['prefill_s']:.6f}, decode_tok_per_s "
+              f"{out['decode_tok_per_s']:.3f}")
+    launches = skernel.launches
+    if launches != cfg.n_layers * len(LM_REQUESTS):
+        raise AssertionError(f"{MAMBA_PATH}: {launches} launches")
+    if fkernel.launches != flash_before:
+        raise AssertionError(f"{MAMBA_PATH}: the flash kernel launched "
+                             f"{fkernel.launches - flash_before} times")
+
+    (b, s, g), prompt = LM_REQUESTS[0], prompts[0]
+    chunked = build_model(cfg, dtype=torch.float32, ssd_impl="chunked")
+    logits, caches = api.prefill(params, prompt, s + g)
+    want, want_caches = chunked.prefill(params, prompt, s + g)
+    if tuple(logits.shape) != (b, 1, cfg.vocab_padded):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    err, scale = compare("prefill logits, kernel vs chunked", logits, want,
+                         rel=1e-3)
+    state_err = 0.0
+    for l, (got_c, want_c) in enumerate(zip(caches, want_caches)):
+        if got_c.state.dtype != torch.float32:
+            raise AssertionError(f"layer {l} state {got_c.state.dtype}")
+        e, _ = compare(f"layer {l} SSM state, kernel vs chunked",
+                       got_c.state, want_c.state, rel=1e-3)
+        compare(f"layer {l} conv window, kernel vs chunked", got_c.conv,
+                want_c.conv, rel=1e-3)
+        state_err = max(state_err, e)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    before = skernel.launches
+    api.decode_step(params, tok, caches, s)
+    if skernel.launches != before:
+        raise AssertionError("a decode step launched the SSD-scan kernel")
+    ref_toks = generate(chunked, params, prompt, g)["tokens"]
+    same = (outs[0]["tokens"] == ref_toks).int().cumprod(dim=1).sum(dim=1)
+    print(f"{MAMBA_PATH} request 1 prefill: logits max|kernel-chunked| "
+          f"{err:.3e} (max|chunked| {scale:.3e}), worst layer state "
+          f"{state_err:.3e}; band 1e-3 x max|chunked| per tensor, all "
+          f"{cfg.n_layers} layers' states and conv windows held; decode "
+          f"launches none; "
+          f"leading greedy tokens equal to the chunked path's, per row: "
+          f"{same.tolist()} of {g}")
+    del caches, want_caches, chunked
+
+    # ---- 10. times on the first request's shape --------------------------
+    shape = (b, s, ssm.n_ssm_heads(d), ssm.n_groups, ssm.head_dim,
+             ssm.d_state)
+    x, a, bb, cc = scan_inputs(*shape)
+    s0 = torch.zeros((b, shape[2], ssm.d_state, ssm.head_dim), device=dev)
+    k_ms = time_ms(torch, lambda: skernel.ssd_scan_cuda_call(
+        x, a, bb, cc, state0=s0, return_state=True))
+    p_ms = time_ms(torch, lambda: ssd_scan_plain_call(
+        x, a, bb, cc, chunk=ssm.chunk, state0=s0, return_state=True))
+    s0_g = s0.reshape(b, ssm.n_groups, -1, ssm.d_state, ssm.head_dim)
+    c_ms = time_ms(torch, lambda: mamba.ssd_chunked(
+        x, a, bb, cc, n_groups=ssm.n_groups, chunk=ssm.chunk, state0=s0_g))
+    flop, nbytes, bound, bound_by = ssd_cost(*shape, state_in=True)
+    del x, a, bb, cc
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = time_ms(torch, lambda: api.prefill(params, prompt, s + g))
+    _, caches = api.prefill(params, prompt, s + g)
+    decode_ms = time_ms(torch, lambda: api.decode_step(params, tok, caches,
+                                                       s))
+    n = cfg.n_layers
+    print(f"time ssd scan x {(b, s, shape[2], shape[4])} b/c "
+          f"{(b, s, shape[3], shape[5])} fp32 with state in and out: kernel "
+          f"{k_ms:.4f} ms, plain (chunk {ssm.chunk}) {p_ms:.4f} ms, chunked "
+          f"twin (chunk {ssm.chunk}) {c_ms:.4f} ms; {flop / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.3f} MB, bound {bound:.4f} ms ({bound_by}), "
+          f"kernel at {bound / k_ms * 100:.2f}% of bound")
+    print(f"time {MAMBA_PATH} request 1 (batch {b}, prompt {s}): prefill "
+          f"{prefill_ms:.3f} ms (CUDA events, median of 5), of which "
+          f"{n} kernel calls {n * k_ms:.3f} ms = "
+          f"{n * k_ms / prefill_ms * 100:.2f}%; decode step "
+          f"{decode_ms:.3f} ms, {b / decode_ms * 1e3:.2f} tokens/s")
+    print(f"peak device memory during the timed prefill and decode "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    trace_breakdown(torch, f"{MAMBA_PATH} prefill",
+                    lambda: api.prefill(params, prompt, s + g))
+    trace_breakdown(torch, f"{MAMBA_PATH} decode step",
+                    lambda: api.decode_step(params, tok, caches, s))
+    # times: one prefill of the first request, 48 calls; no single
+    # PyTorch call computes the scan, so there is no library time
+    return {"name": "ssd_scan", "path": MAMBA_PATH, "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:79",
+            "launches": launches, "max_abs_err": full_err, "ms": n * k_ms,
+            "plain_ms": n * p_ms, "bound_ms": n * bound,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def main() -> int:
@@ -621,6 +886,10 @@ def main() -> int:
           f" GB")
 
     flash_rec = lm_serving(torch, args.seed, compare)
+    gc.collect()  # the Llama path's tensors go before Mamba's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_rec = mamba_serving(torch, args.seed, compare)
 
     # fused-span times: one batch-8 run of ResNet-18's five spans, one
     # batch-4 run of AlexNet's span; launches: each path's run in phase 3
@@ -637,7 +906,7 @@ def main() -> int:
         "bound_ms": rec["bound_ms"],
         "bound_by": "operations" if rec["t_ops"] >= rec["t_mem"] else "bytes",
         "library_ms": rec["library_ms"],
-    } for name, rec in paths.items()] + [flash_rec]}))
+    } for name, rec in paths.items()] + [flash_rec, ssd_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -60,9 +60,12 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cpu"):
     layers = []
     for i, p in _layer_index(cfg):
         sub = params["periods"][f"sub_{i}"]
+        parts = {name: pdict(sub[name], p) for name in ("attn", "ssm", "ffn")
+                 if name in sub}
+        if "norm2" in sub:
+            parts["norm2"] = t(np.asarray(sub["norm2"])[p])
         layers.append(transformer.DecoderLayer(
-            t(np.asarray(sub["norm1"])[p]), pdict(sub["attn"], p),
-            t(np.asarray(sub["norm2"])[p]), pdict(sub["ffn"], p)))
+            t(np.asarray(sub["norm1"])[p]), **parts))
     lm_head = params.get("lm_head")
     return transformer.DecoderParams(
         t(params["embed"]), t(params["final_norm"]), layers,
@@ -70,14 +73,23 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cpu"):
 
 
 def lm_caches_from_numpy(caches, cfg, device: str | torch.device = "cpu"):
-    """The reference's stacked KV caches (``{"sub_<i>": KVCache(k, v)}``
-    with (P, B, S, Hkv, D) leaves, as numpy) as the port's per-layer list
-    of :class:`~repro_torch.models.layers.KVCache`."""
+    """The reference's stacked caches (``{"sub_<i>": cache}``, leaves with
+    a leading period axis, as numpy) as the port's per-layer list: a
+    ``KVCache(k, v)`` becomes a :class:`~repro_torch.models.layers.KVCache`
+    and an ``SSMCache(conv, state)`` a
+    :class:`~repro_torch.models.mamba.SSMCache`, told apart by their field
+    names (both are pairs, so unpacking alone would not tell them apart)."""
     from repro_torch.models.layers import KVCache
+    from repro_torch.models.mamba import SSMCache
 
+    kinds = {KVCache._fields: KVCache, SSMCache._fields: SSMCache}
     out = []
     for i, p in _layer_index(cfg):
-        k, v = caches[f"sub_{i}"]
-        out.append(KVCache(array_from_numpy(np.asarray(k)[p], device),
-                           array_from_numpy(np.asarray(v)[p], device)))
+        cache = caches[f"sub_{i}"]
+        kind = kinds.get(getattr(cache, "_fields", None))
+        if kind is None:
+            raise TypeError(f"sub_{i}: a cache with fields {list(kinds)} "
+                            f"expected, got {type(cache).__name__}")
+        out.append(kind(*(array_from_numpy(np.asarray(leaf)[p], device)
+                          for leaf in cache)))
     return out

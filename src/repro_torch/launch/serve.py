@@ -5,8 +5,10 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --batch 4 --prompt-len 32 --gen 16
 
-It runs on the GPU (prefill attention through the CUDA flash-attention
-kernel); ``serve(..., device="cpu")`` runs on the CPU.
+It runs on the GPU: prefill attention through the CUDA flash-attention
+kernel, and prefill's SSD scan in Mamba layers through the CUDA SSD-scan
+kernel (``--arch mamba2-1.3b``); ``serve(..., device="cpu")`` runs on the
+CPU.
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelCfg
 
-from . import layers, transformer
+from . import layers, mamba, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,18 +42,25 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
                 device: str | torch.device | None = None,
-                attn_impl: str = "flash") -> ModelAPI:
+                attn_impl: str = "flash",
+                ssd_impl: str = "kernel") -> ModelAPI:
     """The model's functions on ``device`` (``None``: the GPU).
 
     ``attn_impl`` picks prefill attention: ``"flash"`` (the CUDA kernel on
     the GPU, its plain version on the CPU) or ``"chunked"`` (the twin of
-    the reference's default XLA path). ``init(generator)`` draws the
-    parameters with a ``torch.Generator`` on ``device``.
+    the reference's default XLA path). ``ssd_impl`` picks prefill's SSD
+    scan in Mamba layers the same way: ``"kernel"`` (the CUDA SSD-scan
+    kernel on the GPU, its plain version on the CPU) or ``"chunked"`` (the
+    twin of the reference's ``ssd_chunked``). ``init(generator)`` draws
+    the parameters with a ``torch.Generator`` on ``device``.
     """
     transformer.check_supported(cfg)
     if attn_impl not in layers.ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {layers.ATTN_IMPLS}, "
                          f"got {attn_impl!r}")
+    if ssd_impl not in mamba.SSD_IMPLS:
+        raise ValueError(f"ssd_impl must be one of {mamba.SSD_IMPLS}, "
+                         f"got {ssd_impl!r}")
     dev = resolve_device(device)
 
     def init(generator: torch.Generator) -> transformer.DecoderParams:
@@ -67,7 +74,7 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
         device=dev,
         init=init,
         prefill=lambda p, b, s_max: transformer.decoder_prefill(
-            p, b, cfg, s_max, attn_impl=attn_impl),
+            p, b, cfg, s_max, attn_impl=attn_impl, ssd_impl=ssd_impl),
         decode_step=lambda p, t, c, pos: transformer.decoder_decode_step(
             p, t, c, pos, cfg),
         init_caches=lambda b, s_max: transformer.init_decoder_caches(

@@ -3,10 +3,13 @@ transformer.py`` (init, prefill, decode) on one device.
 
 The reference stacks each period's parameters on a leading axis and
 scans over them; the port keeps one :class:`DecoderLayer` per layer in an
-``nn.ModuleList`` and one :class:`~repro_torch.models.layers.KVCache` per
-layer, in layer order (layer ``p * period + i`` is the reference's
-``periods["sub_<i>"][p]``). Each layer is an attention mixer and a dense
-SwiGLU FFN; an SSM mixer or an MoE FFN raises ``NotImplementedError``.
+``nn.ModuleList`` and one cache per layer
+(:class:`~repro_torch.models.layers.KVCache` for an attention layer,
+:class:`~repro_torch.models.mamba.SSMCache` for an SSM layer), in layer
+order (layer ``p * period + i`` is the reference's
+``periods["sub_<i>"][p]``). Each layer is an attention or SSM (Mamba-2)
+mixer, with a dense SwiGLU FFN or none; an MoE FFN raises
+``NotImplementedError``.
 
 Not ported yet (ROADMAP Queue A 10): ``param_spec_tree``,
 ``shard_caches`` and ``cache_axes`` (TPU-mesh sharding), the training
@@ -22,36 +25,48 @@ from torch import nn
 
 from repro_torch.configs.base import ModelCfg
 
-from . import layers
+from . import layers, mamba
 from .layers import KVCache
+from .mamba import SSMCache
 
-_LATER = ("is not ported yet: the port serves dense attention decoders; "
-          "MoE, Mamba and enc-dec models come later (ROADMAP Queue A 10)")
+_LATER = ("is not ported yet: the port serves attention and Mamba "
+          "decoders with dense FFNs; MoE and enc-dec models come later "
+          "(ROADMAP Queue A 10)")
 
 
 def check_supported(cfg: ModelCfg) -> None:
     """Raise NotImplementedError for a config with a layer the port does
-    not run yet (SSM mixer, MoE FFN) or an encoder."""
+    not run yet (an MoE FFN) or an encoder."""
     if cfg.is_enc_dec:
         raise NotImplementedError(f"{cfg.name}: an encoder-decoder {_LATER}")
     for l in range(cfg.n_layers):
         mixer, ffn = cfg.layer_kind(l)
-        if mixer != "attn" or ffn != "dense":
+        if mixer not in ("attn", "ssm") or ffn not in ("dense", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer {l} ({mixer} mixer, {ffn} FFN) {_LATER}")
 
 
 class DecoderLayer(nn.Module):
-    """One layer: RMSNorm -> attention -> residual, RMSNorm -> dense FFN
-    -> residual. ``attn`` and ``ffn`` are ``nn.ParameterDict``s with the
-    reference's names."""
+    """One layer: RMSNorm -> mixer -> residual, then (when the layer has
+    one) RMSNorm -> dense FFN -> residual. The mixer is ``attn`` or
+    ``ssm``; ``attn``, ``ssm`` and ``ffn`` are ``nn.ParameterDict``s with
+    the reference's names, and a layer holds only the ones it has (as
+    the reference's parameter tree does)."""
 
-    def __init__(self, norm1: torch.Tensor, attn: nn.ParameterDict,
-                 norm2: torch.Tensor, ffn: nn.ParameterDict):
+    def __init__(self, norm1: torch.Tensor,
+                 attn: nn.ParameterDict | None = None,
+                 norm2: torch.Tensor | None = None,
+                 ffn: nn.ParameterDict | None = None, *,
+                 ssm: nn.ParameterDict | None = None):
         super().__init__()
+        if (attn is None) == (ssm is None):
+            raise ValueError("a layer has exactly one mixer, attn or ssm")
+        if (norm2 is None) != (ffn is None):
+            raise ValueError("norm2 and ffn come together")
         self.norm1 = nn.Parameter(norm1)
         self.attn = attn
-        self.norm2 = nn.Parameter(norm2)
+        self.ssm = ssm
+        self.norm2 = None if norm2 is None else nn.Parameter(norm2)
         self.ffn = ffn
 
 
@@ -91,10 +106,17 @@ def init_decoder_params(cfg: ModelCfg, generator: torch.Generator,
         lm_head = layers.normal_init(generator, (d, vp),
                                      1.0 / math.sqrt(d), dtype)
     stack = []
-    for _ in range(cfg.n_layers):
-        attn = layers.init_attention(generator, cfg, dtype=dtype)
-        ffn = layers.init_ffn(generator, d, cfg.d_ff, dtype)
-        stack.append(DecoderLayer(ones(), attn, ones(), ffn))
+    for l in range(cfg.n_layers):
+        mixer, ffn_kind = cfg.layer_kind(l)
+        if mixer == "attn":
+            mix = dict(attn=layers.init_attention(generator, cfg,
+                                                  dtype=dtype))
+        else:
+            mix = dict(ssm=mamba.init_mamba(generator, d, cfg.ssm, dtype))
+        if ffn_kind == "dense":
+            mix.update(norm2=ones(),
+                       ffn=layers.init_ffn(generator, d, cfg.d_ff, dtype))
+        stack.append(DecoderLayer(ones(), **mix))
     return DecoderParams(embed, ones(), stack, lm_head)
 
 
@@ -103,21 +125,30 @@ def init_decoder_params(cfg: ModelCfg, generator: torch.Generator,
 # --------------------------------------------------------------------------
 
 def _sublayer_apply(layer: DecoderLayer, x, cfg: ModelCfg, positions,
-                    cache: KVCache | None, cache_pos: int | None,
-                    attn_impl: str):
-    """One layer: attention mixer + dense FFN. Returns (x, new_cache)."""
+                    cache, cache_pos: int | None, attn_impl: str,
+                    ssd_impl: str):
+    """One layer: mixer + optional dense FFN. Returns (x, new_cache)."""
     h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
-    y, new_cache = layers.attention_sublayer(
-        layer.attn, h, cfg, positions, causal=True, cache=cache,
-        cache_pos=cache_pos, attn_impl=attn_impl)
+    if layer.attn is not None:
+        y, new_cache = layers.attention_sublayer(
+            layer.attn, h, cfg, positions, causal=True,
+            cache=cache if isinstance(cache, KVCache) else None,
+            cache_pos=cache_pos, attn_impl=attn_impl)
+    else:
+        y, new_cache = mamba.mamba_sublayer(
+            layer.ssm, h, cfg.ssm,
+            cache=cache if isinstance(cache, SSMCache) else None,
+            cache_pos=cache_pos, ssd_impl=ssd_impl)
     x = x + y
-    h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
-    return x + layers.ffn_sublayer(layer.ffn, h), new_cache
+    if layer.ffn is not None:
+        h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
+        x = x + layers.ffn_sublayer(layer.ffn, h)
+    return x, new_cache
 
 
 def decoder_stack(params: DecoderParams, x, cfg: ModelCfg, positions,
-                  caches: list[KVCache] | None = None,
-                  cache_pos: int | None = None, attn_impl: str = "flash"):
+                  caches: list | None = None, cache_pos: int | None = None,
+                  attn_impl: str = "flash", ssd_impl: str = "kernel"):
     """Run all layers. Returns (x, new_caches).
 
     Without caches this is the no-cache forward; with them, the serving
@@ -132,7 +163,7 @@ def decoder_stack(params: DecoderParams, x, cfg: ModelCfg, positions,
     for l, layer in enumerate(params.layers):
         x, nc = _sublayer_apply(layer, x, cfg, positions,
                                 None if caches is None else caches[l],
-                                cache_pos, attn_impl)
+                                cache_pos, attn_impl, ssd_impl)
         if new_caches is not None:
             new_caches.append(nc)
     return x, new_caches
@@ -153,13 +184,21 @@ def unembed(params: DecoderParams, x, cfg: ModelCfg):
 # --------------------------------------------------------------------------
 
 def init_decoder_caches(cfg: ModelCfg, batch: int, s_max: int,
-                        dtype=torch.bfloat16, device=None) -> list[KVCache]:
-    """One zeroed (B, s_max, Hkv, Dh) K/V cache per layer."""
+                        dtype=torch.bfloat16, device=None) -> list:
+    """One zeroed cache per layer: a (B, s_max, Hkv, Dh) K/V cache for an
+    attention layer; for an SSM layer a conv window in ``dtype`` and a
+    state in fp32 (whatever ``dtype``), as the reference's."""
     check_supported(cfg)
     shape = (batch, s_max, cfg.n_kv_heads, cfg.d_head)
-    return [KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                    torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for l in range(cfg.n_layers):
+        if cfg.layer_kind(l)[0] == "attn":
+            caches.append(KVCache(
+                torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device)))
+        else:
+            caches.append(mamba.init_ssm_cache(cfg, batch, dtype, device))
+    return caches
 
 
 def _positions(batch: dict, b: int, s: int, device) -> torch.Tensor:
@@ -171,7 +210,8 @@ def _positions(batch: dict, b: int, s: int, device) -> torch.Tensor:
 
 @torch.no_grad()
 def decoder_prefill(params: DecoderParams, batch: dict, cfg: ModelCfg,
-                    s_max: int, attn_impl: str = "flash"):
+                    s_max: int, attn_impl: str = "flash",
+                    ssd_impl: str = "kernel"):
     """Run the prompt, fill caches, return last-token logits + caches."""
     device = params.embed.device
     if "embeds" in batch:
@@ -182,7 +222,7 @@ def decoder_prefill(params: DecoderParams, batch: dict, cfg: ModelCfg,
     positions = _positions(batch, b, s, device)
     caches = init_decoder_caches(cfg, b, s_max, x.dtype, device)
     x, new_caches = decoder_stack(params, x, cfg, positions, caches,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, ssd_impl=ssd_impl)
     logits = unembed(params, x[:, -1:, :], cfg)
     return logits, new_caches
 

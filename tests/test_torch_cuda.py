@@ -1,7 +1,7 @@
-"""GPU-only tests of the port: the CUDA fused-span and flash-attention
-kernels against their plain PyTorch versions, a deployment on the GPU
-against the same deployment on the CPU, and the LM's prefill and decode on
-the GPU against the CPU.
+"""GPU-only tests of the port: the CUDA fused-span, flash-attention and
+SSD-scan kernels against their plain PyTorch versions, a deployment on the
+GPU against the same deployment on the CPU, and the LMs' (Llama, Mamba2)
+prefill and decode on the GPU against the CPU.
 
 This file imports neither JAX nor ``repro``, so it runs on a GPU machine
 that has only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda
@@ -20,6 +20,8 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain_call
 from repro_torch.kernels.fused_span import kernel
 from repro_torch.kernels.fused_span.ops import span_plain_call
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain_call
 from repro_torch.launch.serve import generate
 from repro_torch.models import cnn
 from repro_torch.models.api import build_model, make_batch
@@ -224,3 +226,124 @@ def test_llama_smoke_serving_on_gpu_matches_cpu(cuda):
     out_gpu = generate(gpu_api, gpu_params, prompt, 8)
     out_cpu = generate(cpu_api, params, prompt, 8)
     assert torch.equal(out_gpu["tokens"].cpu(), out_cpu["tokens"])
+
+
+SSD_CASES = [
+    # (B, T, H, G, P, N, chunk): the reference's grid, slow cases included
+    (2, 128, 4, 1, 16, 8, 32),
+    (1, 100, 4, 2, 32, 16, 32),
+    (1, 64, 2, 2, 8, 4, 64),
+    (1, 256, 8, 1, 64, 128, 64),
+    (2, 96, 4, 4, 16, 16, 16),
+]
+
+
+def ssd_inputs(case, dev, dtype=torch.float32, seed=0):
+    """x, a = -softplus(normal), b, c as the reference's test makes them."""
+    bsz, t, h, g, p, n, _ = case
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((bsz, t, h, p), generator=gen)
+    a = -torch.nn.functional.softplus(torch.randn((bsz, t, h), generator=gen))
+    b = torch.randn((bsz, t, g, n), generator=gen) * 0.5
+    c = torch.randn((bsz, t, g, n), generator=gen) * 0.5
+    return [v.to(dev, dtype) for v in (x, a, b, c)]
+
+
+def close_scaled(got, want, atol):
+    """max|got - want| <= atol * max(max|want|, 1), the reference's band."""
+    scale = max(float(want.float().abs().max()), 1.0)
+    torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                               rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=[str(c) for c in SSD_CASES])
+def test_ssd_kernel_matches_plain_f32(cuda, case):
+    """fp32 within the reference test's 2e-5 band (scaled by
+    max(|plain|, 1)); the kernel's own chunk (64) against the case's
+    chunk in the plain version; one counted launch."""
+    x, a, b, c = ssd_inputs(case, cuda)
+    before = ssd_kernel.launches
+    got, state = ssd_kernel.ssd_scan_cuda_call(x, a, b, c)
+    assert ssd_kernel.launches == before + 1 and state is None
+    want, _ = ssd_scan_plain_call(x, a, b, c, chunk=case[-1])
+    torch.cuda.synchronize()
+    close_scaled(got, want, 2e-5)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_matches_plain_bf16(cuda):
+    """The reference's bf16 case: y in bf16, math in fp32, within 5e-2."""
+    case = (1, 128, 4, 1, 16, 16, 32)
+    x, a, b, c = ssd_inputs(case, cuda, torch.bfloat16)
+    got, _ = ssd_kernel.ssd_scan_cuda_call(x, a, b, c)
+    assert got.dtype == torch.bfloat16
+    want, _ = ssd_scan_plain_call(x, a, b, c, chunk=32)
+    close_scaled(got, want, 5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 63, 200])
+def test_ssd_kernel_state_in_and_out(cuda, t):
+    """A nonzero state in, the state after the last (ragged) token out,
+    and strided (B, T, H, P) views read in place."""
+    case = (2, t, 4, 2, 32, 16, 32)
+    x, a, b, c = ssd_inputs(case, cuda, seed=3)
+    x = x.transpose(1, 2).contiguous().transpose(1, 2)  # strided view
+    gen = torch.Generator().manual_seed(4)
+    s0 = torch.randn((2, 4, 16, 32), generator=gen).to(cuda)
+    got, got_s = ssd_kernel.ssd_scan_cuda_call(x, a, b, c, state0=s0,
+                                               return_state=True)
+    want, want_s = ssd_scan_plain_call(x, a, b, c, chunk=32, state0=s0,
+                                       return_state=True)
+    close_scaled(got, want, 2e-5)
+    close_scaled(got_s, want_s, 2e-5)
+
+
+@pytest.mark.cuda
+def test_mamba_smoke_serving_on_gpu_matches_cpu(cuda):
+    """The same parameters on both devices: GPU prefill (one SSD-kernel
+    launch per layer, none in decode) matches the CPU's plain-version
+    prefill in logits and every layer's state, decode logits match, and
+    greedy generation emits the same tokens."""
+    cfg = get_smoke("mamba2-1.3b")
+    cpu_api = build_model(cfg, dtype=torch.float32, device="cpu")
+    gpu_api = build_model(cfg, dtype=torch.float32)
+    assert gpu_api.device.type == "cuda"
+    params = cpu_api.init(torch.Generator().manual_seed(0))
+    gpu_params = copy.deepcopy(params).to(cuda)
+    prompt = make_batch(cfg, 2, 40, generator=torch.Generator().manual_seed(1))
+    prompt.pop("labels")
+    before = ssd_kernel.launches
+    got, got_caches = gpu_api.prefill(gpu_params, prompt, 48)
+    assert ssd_kernel.launches == before + cfg.n_layers
+    want, want_caches = cpu_api.prefill(params, prompt, 48)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for g, w in zip(got_caches, want_caches):
+        torch.testing.assert_close(g.state.cpu(), w.state, rtol=1e-4,
+                                   atol=1e-4)
+        torch.testing.assert_close(g.conv.cpu(), w.conv, rtol=1e-4,
+                                   atol=1e-4)
+    tok = want[:, -1].argmax(-1)[:, None]
+    got, _ = gpu_api.decode_step(gpu_params, tok, got_caches, 40)
+    want, _ = cpu_api.decode_step(params, tok, want_caches, 40)
+    assert ssd_kernel.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    out_gpu = generate(gpu_api, gpu_params, prompt, 8)
+    out_cpu = generate(cpu_api, params, prompt, 8)
+    assert torch.equal(out_gpu["tokens"].cpu(), out_cpu["tokens"])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_empty_sequence_launches_nothing(cuda):
+    """T = 0: no launch; the state out is the state in (or zeros)."""
+    x, a, b, c = ssd_inputs((2, 0, 4, 2, 8, 4, 16), cuda)
+    s0 = torch.randn((2, 4, 4, 8), generator=torch.Generator().manual_seed(5)
+                     ).to(cuda)
+    before = ssd_kernel.launches
+    y, state = ssd_kernel.ssd_scan_cuda_call(x, a, b, c, state0=s0,
+                                             return_state=True)
+    _, zeros = ssd_kernel.ssd_scan_cuda_call(x, a, b, c, return_state=True)
+    assert ssd_kernel.launches == before
+    assert y.shape == (2, 0, 4, 8)
+    assert torch.equal(state, s0) and not bool(zeros.any())

@@ -30,6 +30,8 @@ def test_port_imports_without_jax_or_repro():
     mods = _port_modules()
     for mod in ("repro_torch.kernels.fused_span.kernel",
                 "repro_torch.kernels.flash_attention.kernel",
+                "repro_torch.kernels.ssd_scan.kernel",
+                "repro_torch.models.mamba",
                 "repro_torch.launch.serve"):
         assert mod in mods
     code = (
