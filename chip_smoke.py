@@ -10,9 +10,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    csrc/*.cu`` into ``build/`` (seconds printed). TF32 is turned off for
    cuDNN and for matmuls, so every fp32 comparison is full fp32.
 2. Kernel vs plain: the fused-span kernel against its plain PyTorch
-   version on the card — small spans (k in {1,3}, stride in {1,2}, pools,
-   residual adds from a ring and from memory, spills) at out_rows 1 and 2
-   in fp32 (rtol = atol = 1e-4) and one in bf16 (5e-2); then the five
+   version on the card — small spans (k in {1,3,5,7,11}, stride in
+   {1,2,4}, pools, residual adds from a ring and from memory with
+   option-A channel padding, spills, rows that give every CTA of a
+   16-CTA cluster a tile, K over several staging chunks) at out_rows 1
+   and 2 in fp32 (rtol = atol = 1e-4) and one in bf16 (5e-2); then the five
    spans of ResNet-18 and AlexNet's span (0, 8) at full width, held to
    max|kernel - plain| <= 1e-3 * max|plain|: deep fp32 sums (fan-in up to
    4,608) taken in another order.
@@ -25,8 +27,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    just after it.
 4. Times: CUDA events, median of 5 after a warm-up, per span for the
    kernel, its plain version and the cuDNN oracle, with the span's bound
-   (multiply-adds of the taps inside the input, bytes moved once);
-   whole-``run`` time at batch 8.
+   (multiply-adds of the taps inside the input, bytes moved once), and
+   the kernel's launch shape (clusters x CTAs, threads, dynamic shared
+   memory, clusters resident at once, ptxas registers and spills of the
+   fp32 instantiation); ResNet-18's spans at batch 8 must run on at
+   least 128 CTAs. Whole-``run`` time at batch 8.
 
 Then the LM serving path, Llama-3.2-1B at its full published width
 (16 layers x d_model 2048, 32/8 heads of 64, d_ff 8192, vocab 128,256;
@@ -84,6 +89,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -108,7 +114,17 @@ SMALL_CASES = [
     ("pool-k3-s2-pad", [(C, 3, 1, 1, 4), (P, 3, 2, 1, 0)], 9, 3),
     ("vgg-block", [(C, 3, 1, 1, 8), (C, 3, 1, 1, 8), (P, 2, 2, 0, 0),
                    (C, 3, 1, 1, 16)], 8, 3),
+    # the cluster's split: all 16 CTAs get a tile, W_out and C_out not
+    # multiples of it; K over three chunks; ResNet's and AlexNet's stems
+    ("wide-40-72", [(C, 3, 1, 1, 72), (P, 2, 2, 0, 0)], 30, 40),
+    ("deep-k-96", [(C, 3, 1, 1, 96), (C, 3, 1, 1, 24)], 8, 3),
+    ("stem-7x7-s2", [(C, 7, 2, 3, 16), (P, 3, 2, 1, 0)], 32, 3),
+    ("stem-11x11-s4", [(C, 11, 4, 0, 16), (P, 3, 2, 0, 0)], 39, 3),
 ]
+# stride-2 option-A shortcut padding channels 8 -> 16, (name, span):
+# from a ring, then from device memory
+OPT_A = ([(C, 3, 1, 1, 8), (C, 3, 2, 1, 16), (C, 3, 1, 1, 16)], 12, 3,
+         ((1, 3),), [("opt-a-ring", 0, 3), ("opt-a-memory", 2, 3)])
 
 FLASH_CASES = [
     # (B, Hq, Hkv, Sq, Skv, D, causal): the reference's flash-attention
@@ -227,6 +243,20 @@ def ssd_cost(bsz, t, h, g, p, n, state_in, itemsize=4):
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     return flop, nbytes, max(t_ops, t_mem), \
         "operations" if t_ops >= t_mem else "bytes"
+
+
+def fp32_ptxas(log):
+    """'N registers, S bytes spill stores' of the fused-span kernel's fp32
+    instantiation, from the nvcc -Xptxas=-v log."""
+    lines = log.read_text().splitlines() if log.exists() else []
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and "kernelIfE" in line:
+            props = " ".join(lines[i + 1:i + 3])
+            regs = re.search(r"Used (\d+) registers", props)
+            spill = re.search(r"(\d+) bytes spill stores", props)
+            if regs and spill:
+                return f"{regs[1]} registers, {spill[1]} bytes spill stores"
+    return "not in the build log"
 
 
 def time_ms(torch, fn, reps=5):
@@ -712,6 +742,10 @@ def main() -> int:
     # span (1, 4): (0, 2) crosses in from memory, (1, 4) reads ring 0,
     # (2, 5) leaves the span, so map 2 spills
     small.append(("res-src-spill", res_net, 1, 4))
+    specs, hw, ch, edges, opt_spans = OPT_A
+    opt_net = chain("opt-a", specs, in_h=hw, in_w=hw, in_ch=ch,
+                    residual_edges=edges)
+    small += [(name, opt_net, a, b) for name, a, b in opt_spans]
     n_small, small_err = 0, 0.0
     for name, net, a, b in small:
         b = net.n_layers if b is None else b
@@ -844,6 +878,7 @@ def main() -> int:
 
     # ---- 4. times -----------------------------------------------------------
     oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
+    span_ptxas = fp32_ptxas(libs["fused_span"].with_suffix(".log"))
     for net_name, net, params, maps, a, b, kw in span_args:
         xs = maps[a]
         batch = xs.shape[0]
@@ -856,11 +891,20 @@ def main() -> int:
                                                  kw["spill"]))
         macs, nbytes, bound, bound_by = span_cost(
             net, a, b, batch, kw["spill"], tuple(kw["srcs"]))
+        shape = kernel.last_launch
+        if net_name == "resnet18" and batch == 8 and shape["ctas"] < 128:
+            raise AssertionError(f"resnet18 span ({a}, {b}) at batch 8 "
+                                 f"launched {shape['ctas']} CTAs")
         print(f"time {net_name} span ({a}, {b}) batch {batch}: kernel "
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, cuDNN oracle "
               f"{o_ms:.3f} ms; {macs / 1e9:.3f} GMAC in range, "
               f"{nbytes / 1e6:.3f} MB, bound {bound:.4f} ms ({bound_by}), "
               f"kernel at {bound / k_ms * 100:.2f}% of bound")
+        print(f"  launch {net_name} span ({a}, {b}): {shape['clusters']} "
+              f"clusters x {shape['cluster']} CTAs = {shape['ctas']} CTAs, "
+              f"{shape['threads']} threads per CTA, {shape['smem']} bytes of "
+              f"dynamic shared memory, {shape['resident_clusters']} "
+              f"clusters resident at once; ptxas fp32: {span_ptxas}")
         rec = paths[net_name]
         rec["ms"] += k_ms
         rec["plain_ms"] += p_ms

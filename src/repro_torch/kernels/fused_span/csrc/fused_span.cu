@@ -11,49 +11,84 @@
 // projection from a ring or a device-memory source map; spilled interior
 // maps and the output map are written row by row.
 //
-// What bounds it on this card. The span's arithmetic (1.79 GMAC per image
-// for ResNet-18) runs on the fp32 CUDA cores, with one weight load and one
-// activation load per multiply-add, so it is bound by load-issue rate and
-// fp32 FMA throughput rather than by device-memory bytes: the only
-// device-memory traffic the algorithm needs is the span's input, its
-// output, its spills and its weights. The rings of a full-width span
-// (several MB per image) do not fit the 227 KB of shared memory, so they
-// live in a device-memory workspace of batch x closure elements that is
-// meant to stay resident in the 50 MB L2. The TPU kept the filters
-// VMEM-resident across the batch; here every CTA reads them through L2.
+// What bounds it on this card. The schedule is a chain of dependent rows
+// (532 per image for ResNet-18's span (0, 12)), each too small to fill an
+// SM, and batches are small (1-8 images). The arithmetic (1.11 GMAC per
+// image for ResNet-18's five spans) runs on the fp32 CUDA cores; the
+// device-memory traffic the algorithm needs is only the span's input,
+// output, spills and weights. The rings of a full-width span (several MB
+// per image) do not fit the 227 KB of shared memory, so they live in a
+// device-memory workspace of batch x closure elements that stays in the
+// 50 MB L2. So a row's time is latency: a cluster barrier, the L2 round
+// trip for the rows just written, the row's weights streamed from L2 at
+// about 27 B/clk per SM, then its FMAs. One CTA per image, scalar FMAs
+// with two loads each, would leave 124 of 132 SMs idle at batch 8.
 //
-// What the design does about it. One generic compiled kernel serves every
-// span: the per-span facts (map geometry, ring caps and offsets, residual
-// table, spill list, the schedule's slot table and arrivals) come from a
-// descriptor built once per schedule by kernel.py, so no per-span nvcc
-// run is needed. One CTA runs one image; inside it the schedule's steps
-// run in order (the TPU's sequential grid axis), with __syncthreads()
-// between dependent rows. Threads cover out_w x C_out of a row, neighbours
-// on neighbouring output channels, so weight reads coalesce and the
-// activation read is a warp broadcast. Accumulation is fp32 for every
-// activation type. With batch <= 8 most of the 132 SMs are idle; spreading
-// a row over several CTAs, shared-memory rings and wgmma are later work.
+// What the design does about it.
+// - A thread-block cluster of 16 CTAs (8 where the device cannot place 16)
+//   works on one image; all CTAs walk the schedule's steps in order. Each
+//   CTA owns a fixed tile (columns x channels) of every map's W_out x
+//   C_out row, chosen per map by kernel.py and read from the descriptor;
+//   the tiles of a row cover it once. The input-block copy into ring 0,
+//   pool rows, residual adds and spills are split over the same tiles. A
+//   cluster barrier (arrive.release / wait.acquire) ends every produced
+//   row and every arrival, so a ring slot is rewritten only after every
+//   CTA has passed the rows that read it. Ring and source reads bypass L1
+//   (ld.global.cg, cp.async.cg): L1 is not coherent across the SMs. At
+//   most 128 registers and half an SM's shared memory per CTA let two
+//   CTAs share an SM, so 14 clusters of 16 are resident and a batch of 8
+//   runs in one wave.
+// - A conv row is an implicit GEMM, A[W tile, K = k*k*C_in] times B[K,
+//   C_out tile] (the HWIO weights are B in K-major order), in K-chunks
+//   staged in shared memory by cp.async, two to four chunks deep. A is
+//   staged as the CTA's input window (k rows x the tile's columns x a
+//   chunk of input channels, each value once, a tap table giving each K
+//   index's offset) where C_in is a multiple of 4, else as im2col rows
+//   through registers (converted to fp32, padding taps zeroed). Each
+//   thread keeps a 4-column x 4-channel fp32 tile in registers, so four
+//   16-byte loads of A and four of B feed 64 FMAs; when the CTA's tile
+//   has fewer than 16 x 256 outputs the threads split K into groups and
+//   add the groups' tiles through shared memory at the row's end. Bias,
+//   ReLU, residual adds (fp32, before the cast) and the stores run in
+//   that epilogue.
+// - A CTA reads only its own C_out slice of each layer's weights, through
+//   shared memory in K-chunks; every row of every image reads it again
+//   from L2. The TPU kept the filters VMEM-resident across the batch.
+//   Weights resident across images, tensor cores (wgmma), TMA, and rings
+//   in shared or distributed shared memory are later work.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
+constexpr int kMaxK = 32;    // largest kernel size (rows of a conv window)
+constexpr int kMaxTaps = 128;  // largest k * k of a window-staged conv
 constexpr int kMaxConv = 128;
 constexpr int kMaxSrc = 8;
 constexpr int kMaxSpill = 8;
 constexpr float kNegInf = -1e30f;
 
 // Descriptor layout (int32), written by kernel.py::_descriptor.
+// Dynamic shared memory holds, in order: a copy of the descriptor up to
+// its slot table (ints), the current step's row of the slot table at int
+// offset H_ROW, a conv tile's biases at float offset H_BIAS, and from
+// float offset H_STAGE the K-chunks of conv_tile.
 enum Header {
-  H_NMAPS, H_INROWS, H_NSTEPS, H_TOTSLOTS, H_NRES,
-  H_MAPS, H_RES, H_SLOTS, H_ARRIVALS, H_TABLE, H_LEN
+  H_NMAPS, H_INROWS, H_NSTEPS, H_TOTSLOTS, H_NRES, H_CLUSTER,
+  H_ROW, H_BIAS, H_STAGE, H_MAPS, H_RES, H_SLOTS, H_ARRIVALS, H_TABLE, H_LEN
 };
-// One record per map a .. b (record 0 is the span input).
+// One record per map a .. b (record 0 is the span input). M_TW x M_TC is a
+// CTA's tile of the row (columns x channels), M_NCT the channel tiles per
+// row; for a conv row, M_MODE how A is staged (0 im2col, 1 window), M_BK
+// the K indices (im2col) or input channels (window) of a chunk, a power of
+// two >= 4, M_KS the K-split groups and M_STAGES the chunks held in shared
+// memory (2-4).
 enum MapField {
   M_KIND, M_K, M_STRIDE, M_PAD, M_H, M_W, M_C, M_CAP, M_RING,
-  M_RES0, M_NRES, M_SPILL, M_CONV, M_LEN
+  M_RES0, M_NRES, M_SPILL, M_CONV, M_TW, M_TC, M_NCT, M_BK, M_KS,
+  M_STAGES, M_MODE, M_LEN
 };
 // One record per residual edge ending in the span, in net order.
 // R_SRC_KIND 0: the source is ring R_SRC; 1: it is srcs operand R_SRC.
@@ -70,11 +105,16 @@ struct SpanPtrs {
   void* spill[kMaxSpill];
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Loads of rings and sources, through L2 only (written by other CTAs).
+__device__ __forceinline__ float ld_act(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ld_act(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p))));
 }
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ float ld_act(const __half* p) {
+  return __half2float(
+      __ushort_as_half(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
@@ -88,12 +128,324 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half_rn(v);
 }
 
-// Produce row r of map `off` (record mm) from its input map (record mp).
+// cp.async of 16 or 4 bytes; src_bytes 0 fills the destination with zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Every thread of every CTA of the cluster; writes before it are visible
+// to loads after it anywhere in the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_reg(int which) {
+  unsigned v;
+  if (which == 0) {
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  } else {
+    asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(v));
+  }
+  return v;
+}
+
+// The CTA's tile of a conv row: sums of the x0 .. x0+nx-1 columns and
+// c0 .. c0+nc-1 channels, one per K-split group, left in shared memory at
+// red[(g * twp + m) * tc + n]. Returns the number of groups.
+//
+// K = k*k*C_in is walked in chunks; shared memory holds M_STAGES of them,
+// each an A part then B[kc][tc] (kc K indices of the chunk), and
+// M_STAGES - 1 chunks are in flight while one is multiplied. A is staged
+// one of two ways (M_MODE):
+// - im2col: a chunk is M_BK consecutive K indices, A[twp][M_BK + 4];
+// - window: a chunk is every tap over M_BK input channels, and A is the
+//   CTA's input window W[k][(twp - 1) * stride + k][M_BK + 4], each input
+//   value staged once instead of once per tap; a tap table gives a K
+//   index's window offset.
+template <typename T>
+__device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
+                                         const int r, const int x0,
+                                         const int nx, const int c0,
+                                         const int nc, const T* ring_in,
+                                         const float* __restrict__ wt,
+                                         const float* __restrict__ bias,
+                                         float* sbias, float* sm,
+                                         long long* rowbase, int* tapoff) {
+  const int k = mm[M_K], stride = mm[M_STRIDE], pad = mm[M_PAD];
+  const int h_in = mp[M_H], w_in = mp[M_W], c_in = mp[M_C];
+  const int cap_in = mp[M_CAP], c_out = mm[M_C];
+  const int tc = mm[M_TC], twp = (mm[M_TW] + 3) & ~3;
+  const int bk = mm[M_BK], ks = mm[M_KS], stages = mm[M_STAGES];
+  const bool window = mm[M_MODE] == 1;
+  const int lg_bk = __ffs(bk) - 1;
+  const int cstr = bk + 4;  // row stride of A (both modes)
+  const int wcols = (twp - 1) * stride + k;
+  const int a_size = window ? k * wcols * cstr : twp * cstr;
+  const int kc = window ? k * k * bk : bk;  // K indices per chunk
+  const int st_size = a_size + kc * tc;
+  const int kdim = k * k * c_in;
+  const int n_chunks = window ? (c_in + bk - 1) / bk : (kdim + bk - 1) / bk;
+  const int tid = threadIdx.x;
+  if (tid < k) {
+    const int rr = r * stride - pad + tid;
+    rowbase[tid] = (rr >= 0 && rr < h_in)
+                       ? (long long)(rr % cap_in) * w_in * c_in
+                       : -1;
+  }
+  if (window) {
+    for (int t = tid; t < k * k; t += kThreads) {
+      const int dy = t / k;
+      tapoff[t] = (dy * wcols + t - dy * k) * cstr;
+    }
+  }
+  __syncthreads();
+  const int col_base = x0 * stride - pad;
+  // 16-byte copies of 4 fp32 channels need C_in % 4 == 0 and an aligned
+  // ring; otherwise A goes through registers (converted, zero-padded).
+  const bool vec_a = sizeof(T) == 4 && (c_in & 3) == 0 &&
+                     (reinterpret_cast<unsigned long long>(ring_in) & 15) == 0;
+  const bool vec_b = (c_out & 3) == 0;
+  const int per_row = vec_b ? tc >> 2 : tc;
+  const int b_lanes = min(per_row, kThreads);
+  const int b_rows = kThreads / b_lanes;
+
+  // im2col: A[m][kk] = ring row (r*stride - pad + dy), column (x0+m)*stride
+  // - pad + dx, channel ci, where k0 + kk = (dy * k + dx) * C_in + ci. K
+  // positions (groups of 4 when vectorised) over `lanes` threads, columns
+  // over the rest; a position's (dy, dx, ci) is split once.
+  auto load_im2col = [&](int k0, float* as) {
+    const int kpos = vec_a ? bk >> 2 : bk;
+    const int lanes = min(kpos, kThreads);  // powers of 2
+    const int lg_l = __ffs(lanes) - 1;
+    const int m_first = tid >> lg_l, m_step = kThreads >> lg_l;
+    const int kend = min(bk, kdim - k0);
+    for (int kp = tid & (lanes - 1); kp < kpos; kp += lanes) {
+      const int kk = vec_a ? kp << 2 : kp;
+      long long rb = -1;
+      int col0 = 0;
+      if (kk < kend) {
+        const int kg = k0 + kk;
+        const int tap = kg / c_in, ci = kg - tap * c_in;
+        const int dy = tap / k, dx = tap - dy * k;
+        rb = rowbase[dy];
+        col0 = col_base + dx;
+        rb = rb < 0 ? -1 : rb + ci;
+      }
+      if (vec_a) {
+        const float* ring = reinterpret_cast<const float*>(ring_in);
+        for (int m = m_first; m < twp; m += m_step) {
+          const int col = col0 + m * stride;
+          const bool ok = rb >= 0 && m < nx && col >= 0 && col < w_in;
+          cp_async16(as + m * cstr + kk,
+                     ok ? ring + rb + (long long)col * c_in : ring,
+                     ok ? 16 : 0);
+        }
+      } else {  // eight loads in flight per thread
+        for (int m0 = m_first; m0 < twp; m0 += 8 * m_step) {
+          float v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int m = m0 + u * m_step;
+            const int col = col0 + m * stride;
+            v[u] = rb >= 0 && m < nx && col >= 0 && col < w_in
+                       ? ld_act(ring_in + rb + (long long)col * c_in)
+                       : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int m = m0 + u * m_step;
+            if (m < twp) as[m * cstr + kk] = v[u];
+          }
+        }
+      }
+    }
+  };
+  // window: W[dy][col][ci - ci0] = ring row (r*stride - pad + dy), column
+  // x0*stride - pad + col, channel ci, for ci in [ci0, ci0 + bk)
+  auto load_window = [&](int ci0, float* ws_) {
+    const int q_lg = vec_a ? lg_bk - 2 : lg_bk;  // channels (or 4s) per col
+    const int n_e = wcols << q_lg;
+    for (int dy = 0; dy < k; ++dy) {
+      const long long rb = rowbase[dy];
+      float* wrow = ws_ + dy * wcols * cstr;
+      if (vec_a) {
+        const float* ring = reinterpret_cast<const float*>(ring_in);
+        for (int e = tid; e < n_e; e += kThreads) {
+          const int col = e >> q_lg, ci = (e & ((1 << q_lg) - 1)) << 2;
+          const int gcol = col_base + col;
+          const bool ok = rb >= 0 && gcol >= 0 && gcol < w_in &&
+                          ci0 + ci < c_in;
+          cp_async16(wrow + col * cstr + ci,
+                     ok ? ring + rb + (long long)gcol * c_in + ci0 + ci : ring,
+                     ok ? 16 : 0);
+        }
+      } else {  // eight loads in flight per thread
+        for (int e0 = tid; e0 < n_e; e0 += 8 * kThreads) {
+          float v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * kThreads;
+            const int col = e >> q_lg, ci = e & (bk - 1);
+            const int gcol = col_base + col;
+            v[u] = e < n_e && rb >= 0 && gcol >= 0 && gcol < w_in &&
+                           ci0 + ci < c_in
+                       ? ld_act(ring_in + rb + (long long)gcol * c_in + ci0 +
+                                ci)
+                       : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * kThreads;
+            if (e < n_e) wrow[(e >> q_lg) * cstr + (e & (bk - 1))] = v[u];
+          }
+        }
+      }
+    }
+  };
+  // B[kk][n] = the weight row of the chunk's kk-th K index, columns c0 + n;
+  // zero past K and past the tile's nc
+  auto load_b = [&](int c, float* bs) {
+    const int k0 = c * bk;
+    for (int qi = tid < b_rows * b_lanes ? tid % b_lanes : per_row;
+         qi < per_row; qi += b_lanes) {
+      const int q = vec_b ? qi << 2 : qi;
+      for (int kk = tid / b_lanes; kk < kc; kk += b_rows) {
+        int row;  // row of the (k*k*C_in, C_out) weight matrix
+        bool ok;
+        if (window) {
+          const int ci = k0 + (kk & (bk - 1));
+          row = (kk >> lg_bk) * c_in + ci;
+          ok = ci < c_in;
+        } else {
+          row = k0 + kk;
+          ok = row < kdim;
+        }
+        ok = ok && q < nc;
+        const float* src = ok ? wt + (long long)row * c_out + c0 + q : wt;
+        if (vec_b) {
+          cp_async16(bs + kk * tc + q, src, ok ? 16 : 0);
+        } else {
+          cp_async4(bs + kk * tc + q, src, ok ? 4 : 0);
+        }
+      }
+    }
+  };
+  auto fetch = [&](int c) {  // one cp.async group per chunk, maybe empty
+    if (c < n_chunks) {
+      float* as = sm + (c % stages) * st_size;
+      if (window) {
+        load_window(c * bk, as);
+      } else {
+        load_im2col(c * bk, as);
+      }
+      load_b(c, as + a_size);
+    }
+    cp_async_commit();
+  };
+
+  // compute: group g of ks walks the chunk's K four at a time; the thread
+  // holds columns tm + i * ntm (i < 4, interleaved so the threads' 16-byte
+  // reads of A spread over the banks) x channels 4 tn .. 4 tn + 3
+  const int ntn = tc >> 2, ntm = twp >> 2, grp = ntm * ntn;
+  const int g = tid / grp, l = tid - g * grp;
+  const int tn = l % ntn, tm = l / ntn;
+  const bool active = g < ks;
+  const int mstr = window ? stride * cstr : cstr;  // A: next column
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  for (int i = tid; i < nc; i += kThreads) {  // lands with chunk 0
+    cp_async4(sbias + i, bias + c0 + i, 4);
+  }
+  for (int s = 0; s < stages - 1; ++s) fetch(s);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (stages == 2) {
+      cp_async_wait<0>();
+    } else if (stages == 3) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<2>();
+    }
+    __syncthreads();  // chunk c is in; chunk c - 1's stage is free
+    fetch(c + stages - 1);
+    if (active) {
+      const float* ap = sm + (c % stages) * st_size + tm * mstr;
+      const float* bp = sm + (c % stages) * st_size + a_size + 4 * tn;
+      const int kend = window ? kc : min(bk, kdim - c * bk);
+      // A offset of K index kk, looked up one step ahead in window mode
+      auto a_off = [&](int kk) {
+        return window ? tapoff[kk >> lg_bk] + (kk & (bk - 1)) : kk;
+      };
+      int ak = a_off(min(4 * g, kc - 4));
+      for (int kk = 4 * g; kk < kend; kk += 4 * ks) {
+        const int ak_next = a_off(min(kk + 4 * ks, kc - 4));
+        float4 a4[4], b4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a4[i] = *reinterpret_cast<const float4*>(ap + i * ntm * mstr + ak);
+          b4[i] = *reinterpret_cast<const float4*>(bp + (kk + i) * tc);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a_v[4] = {a4[i].x, a4[i].y, a4[i].z, a4[i].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][0] = fmaf(a_v[j], b4[j].x, acc[i][0]);
+            acc[i][1] = fmaf(a_v[j], b4[j].y, acc[i][1]);
+            acc[i][2] = fmaf(a_v[j], b4[j].z, acc[i][2]);
+            acc[i][3] = fmaf(a_v[j], b4[j].w, acc[i][3]);
+          }
+        }
+        ak = ak_next;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every chunk multiplied: the stages take the sums
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<float4*>(sm + (g * twp + tm + i * ntm) * tc +
+                                 4 * tn) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  }
+  __syncthreads();
+  return ks;
+}
+
+// Produce this CTA's tile of row r of map `off` (record mm) from its
+// input map (record mp). Uniform over the CTA.
 template <typename T>
 __device__ __forceinline__ void produce_row(const int* __restrict__ maps,
-                            const int* __restrict__ res, const int off,
-                            const int n_maps, const int r, const int n,
-                            T* ws, T* out, const SpanPtrs& p) {
+                                            const int* __restrict__ res,
+                                            const int off, const int n_maps,
+                                            const int r, const int n,
+                                            const int rank, T* ws, T* out,
+                                            const SpanPtrs& p, float* sbias,
+                                            float* sm, long long* rowbase,
+                                            int* tapoff) {
   const int* mm = maps + off * M_LEN;
   const int* mp = maps + (off - 1) * M_LEN;
   const int kind = mm[M_KIND], k = mm[M_K];
@@ -102,9 +454,11 @@ __device__ __forceinline__ void produce_row(const int* __restrict__ maps,
   const int cap_in = mp[M_CAP];
   const int h_out = mm[M_H], w_out = mm[M_W], c_out = mm[M_C];
   const int n_out = w_out * c_out;
+  const int nct = mm[M_NCT], tw = mm[M_TW], tc = mm[M_TC];
+  const int x0 = (rank / nct) * tw, c0 = (rank % nct) * tc;
+  const int nx = min(tw, w_out - x0), nc = min(tc, c_out - c0);
+  if (nx <= 0 || nc <= 0) return;  // a CTA with no tile in this row
   const T* ring_in = ws + mp[M_RING];
-  const float* wt = kind == 0 ? p.w[mm[M_CONV]] : nullptr;
-  const float* bias = kind == 0 ? p.bias[mm[M_CONV]] : nullptr;
   T* dst = off < n_maps - 1
                ? ws + mm[M_RING] + (long long)(r % mm[M_CAP]) * n_out
                : out + (long long)r * n_out;
@@ -113,81 +467,114 @@ __device__ __forceinline__ void produce_row(const int* __restrict__ maps,
     spill_dst = static_cast<T*>(p.spill[mm[M_SPILL]]) +
                 ((long long)n * h_out + r) * n_out;
   }
-  for (int idx = threadIdx.x; idx < n_out; idx += blockDim.x) {
-    const int xo = idx / c_out;
-    const int co = idx - xo * c_out;
+  int groups = 0;
+  if (kind == 0) {
+    groups = conv_tile<T>(mm, mp, r, x0, nx, c0, nc, ring_in,
+                          p.w[mm[M_CONV]], p.bias[mm[M_CONV]], sbias, sm,
+                          rowbase, tapoff);
+  }
+  // Residual edge e's value at (xo, co), option-A projection: strided rows
+  // and columns, channel zero-pad or trim. False where it adds nothing.
+  auto residual = [&](int e, int xo, int co, float* val) {
+    const int* rs = res + (mm[M_RES0] + e) * R_LEN;
+    const int h_s = rs[R_H], w_s = rs[R_W], c_s = rs[R_C];
+    const int sh = max(h_s / h_out, 1), sw = max(w_s / w_out, 1);
+    const int src_abs = min(r * sh, h_s - 1);
+    const int xs = xo * sw;
+    if (co >= c_s || xs >= w_s) return false;
+    const T* srow;
+    if (rs[R_SRC_KIND] == 0) {
+      const int* ms = maps + rs[R_SRC] * M_LEN;
+      srow = ws + ms[M_RING] + (long long)(src_abs % ms[M_CAP]) * w_s * c_s;
+    } else {
+      srow = static_cast<const T*>(p.src[rs[R_SRC]]) +
+             ((long long)n * h_s + src_abs) * w_s * c_s;
+    }
+    *val = ld_act(srow + (long long)xs * c_s + co);
+    return true;
+  };
+  const int twp = (tw + 3) & ~3;
+  for (int o = threadIdx.x; o < nx * nc; o += blockDim.x) {
+    const int m = o / nc, nn = o - m * nc;
+    const int xo = x0 + m, co = c0 + nn;
+    // the first residual's load flies while the row value is formed
+    float r0 = 0.f;
+    const bool has_r0 = mm[M_NRES] > 0 && residual(0, xo, co, &r0);
     float v;
     if (kind == 0) {
-      float acc = 0.f;
-      for (int dy = 0; dy < k; ++dy) {
-        const int rr = r * stride - pad + dy;
-        if (rr < 0 || rr >= h_in) continue;  // zero padding row
-        const T* row = ring_in + (long long)(rr % cap_in) * w_in * c_in;
-        const float* wrow = wt + (long long)dy * k * c_in * c_out + co;
-        for (int dx = 0; dx < k; ++dx) {
-          const int col = xo * stride - pad + dx;
-          if (col < 0 || col >= w_in) continue;  // zero padding column
-          const T* xin = row + (long long)col * c_in;
-          const float* wk = wrow + (long long)dx * c_in * c_out;
-          for (int ci = 0; ci < c_in; ++ci) {
-            acc = fmaf(to_f(xin[ci]), __ldg(wk + (long long)ci * c_out), acc);
-          }
-        }
+      float s0 = 0.f, s1 = 0.f;  // two independent partial sums
+      int gg = 0;
+      for (; gg + 1 < groups; gg += 2) {
+        s0 += sm[(gg * twp + m) * tc + nn];
+        s1 += sm[((gg + 1) * twp + m) * tc + nn];
       }
-      v = fmaxf(acc + __ldg(bias + co), 0.f);
+      if (gg < groups) s0 += sm[(gg * twp + m) * tc + nn];
+      v = fmaxf(s0 + s1 + sbias[nn], 0.f);
     } else {
-      float m = kNegInf;  // padding rows and columns read as -1e30
-      for (int dy = 0; dy < k; ++dy) {
-        const int rr = r * stride - pad + dy;
-        if (rr < 0 || rr >= h_in) continue;
-        const T* row = ring_in + (long long)(rr % cap_in) * w_in * c_in;
-        for (int dx = 0; dx < k; ++dx) {
+      float mx = kNegInf;  // padding rows and columns read as -1e30
+      for (int t0 = 0; t0 < k * k; t0 += 16) {  // 16 taps' loads in flight
+        float tv[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const int tap = t0 + u, dy = tap / k, dx = tap - dy * k;
+          const int rr = r * stride - pad + dy;
           const int col = xo * stride - pad + dx;
-          if (col < 0 || col >= w_in) continue;
-          m = fmaxf(m, to_f(row[(long long)col * c_in + co]));
+          tv[u] = tap < k * k && rr >= 0 && rr < h_in && col >= 0 &&
+                          col < w_in
+                      ? ld_act(ring_in +
+                               ((long long)(rr % cap_in) * w_in + col) * c_in +
+                               co)
+                      : kNegInf;
         }
+#pragma unroll
+        for (int u = 0; u < 16; ++u) mx = fmaxf(mx, tv[u]);
       }
-      v = m;
+      v = mx;
     }
-    // Residual adds in fp32 before the cast, option-A projection:
-    // strided rows and columns, channel zero-pad or trim.
-    for (int e = 0; e < mm[M_NRES]; ++e) {
-      const int* rs = res + (mm[M_RES0] + e) * R_LEN;
-      const int h_s = rs[R_H], w_s = rs[R_W], c_s = rs[R_C];
-      const int sh = max(h_s / h_out, 1), sw = max(w_s / w_out, 1);
-      const int src_abs = min(r * sh, h_s - 1);
-      const int xs = xo * sw;
-      if (co >= c_s || xs >= w_s) continue;
-      const T* srow;
-      if (rs[R_SRC_KIND] == 0) {
-        const int* ms = maps + rs[R_SRC] * M_LEN;
-        srow = ws + ms[M_RING] + (long long)(src_abs % ms[M_CAP]) * w_s * c_s;
-      } else {
-        srow = static_cast<const T*>(p.src[rs[R_SRC]]) +
-               ((long long)n * h_s + src_abs) * w_s * c_s;
-      }
-      v += to_f(srow[(long long)xs * c_s + co]);
+    // residual adds in fp32 before the cast, in net order
+    if (has_r0) v += r0;
+    for (int e = 1; e < mm[M_NRES]; ++e) {
+      float re;
+      if (residual(e, xo, co, &re)) v += re;
     }
-    const T o = from_f<T>(v);
-    dst[idx] = o;
-    if (spill_dst != nullptr) spill_dst[idx] = o;
+    const T o_v = from_f<T>(v);
+    const long long idx = (long long)xo * c_out + co;
+    dst[idx] = o_v;
+    if (spill_dst != nullptr) spill_dst[idx] = o_v;
   }
 }
 
-// __grid_constant__: p stays in the parameter space when produce_row
-// indexes its pointer tables, instead of being copied per thread.
+// One cluster per image, two CTAs per SM at most (128 registers, at most
+// half the SM's shared memory each); __grid_constant__ keeps p in the
+// parameter space when produce_row indexes its pointer tables.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     fused_span_kernel(const int* __restrict__ desc,
                       const __grid_constant__ SpanPtrs p) {
-  const int n = blockIdx.x;  // one CTA per image
-  const int n_maps = desc[H_NMAPS], in_rows = desc[H_INROWS];
-  const int n_steps = desc[H_NSTEPS], total_slots = desc[H_TOTSLOTS];
-  const int* maps = desc + desc[H_MAPS];
-  const int* res = desc + desc[H_RES];
-  const int* slots = desc + desc[H_SLOTS];
-  const int* arrivals = desc + desc[H_ARRIVALS];
-  const int* table = desc + desc[H_TABLE];
+  extern __shared__ float4 smem4[];
+  __shared__ long long rowbase[kMaxK];
+  __shared__ int tapoff[kMaxTaps];
+  int* sd = reinterpret_cast<int*>(smem4);
+  // the descriptor up to its slot table, read once into shared memory: the
+  // rows read it again and again
+  for (int i = threadIdx.x; i < desc[H_TABLE]; i += blockDim.x) {
+    sd[i] = desc[i];
+  }
+  __syncthreads();
+  const int cluster = sd[H_CLUSTER];
+  if (static_cast<int>(cluster_reg(1)) != cluster) __trap();
+  const int rank = static_cast<int>(cluster_reg(0));
+  const int n = blockIdx.x / cluster;  // the cluster's image
+  const int n_maps = sd[H_NMAPS], in_rows = sd[H_INROWS];
+  const int n_steps = sd[H_NSTEPS], total_slots = sd[H_TOTSLOTS];
+  const int* maps = sd + sd[H_MAPS];
+  const int* res = sd + sd[H_RES];
+  const int* slots = sd + sd[H_SLOTS];
+  const int* arrivals = sd + sd[H_ARRIVALS];
+  const int* table = desc + sd[H_TABLE];
+  int* srow = sd + sd[H_ROW];
+  float* sbias = reinterpret_cast<float*>(smem4) + sd[H_BIAS];
+  float* sm = reinterpret_cast<float*>(smem4) + sd[H_STAGE];
   const int* m0 = maps;
   const int* mb = maps + (n_maps - 1) * M_LEN;
   const int in_elems = m0[M_W] * m0[M_C];
@@ -196,45 +583,130 @@ __global__ void __launch_bounds__(kThreads)
   T* out = static_cast<T*>(p.out) +
            (long long)n * mb[M_H] * mb[M_W] * mb[M_C];
   T* ring0 = ws + m0[M_RING];
+  // the CTA's share of an input row
+  const int share = (in_elems + cluster - 1) / cluster;
+  const int e0 = rank * share, e1 = min(e0 + share, in_elems);
 
   for (int t = 0; t < n_steps; ++t) {
+    __syncthreads();  // the previous step's table row is read
+    for (int i = threadIdx.x; i < total_slots; i += blockDim.x) {
+      srow[i] = table[(long long)t * total_slots + i];
+    }
     const int blk = arrivals[t];
     if (blk >= 0) {  // the step's input block joins ring 0
-      for (int ii = 0; ii < in_rows; ++ii) {
-        const int g = blk * in_rows + ii;
-        if (g >= m0[M_H]) break;
-        T* dst = ring0 + (long long)(g % m0[M_CAP]) * in_elems;
-        const T* src = x + (long long)g * in_elems;
-        for (int e = threadIdx.x; e < in_elems; e += blockDim.x) {
-          dst[e] = src[e];
+      // this CTA's share of each row of the block, four loads in flight
+      const int rows = min(in_rows, m0[M_H] - blk * in_rows);
+      const int len = max(e1 - e0, 0), n_e = rows * len;
+      for (int i0 = threadIdx.x; i0 < n_e; i0 += 4 * blockDim.x) {
+        T v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * blockDim.x;
+          const int g = blk * in_rows + i / max(len, 1);
+          if (i < n_e) v[u] = x[(long long)g * in_elems + e0 + i % len];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * blockDim.x;
+          const int g = blk * in_rows + i / max(len, 1);
+          if (i < n_e) {
+            ring0[(long long)(g % m0[M_CAP]) * in_elems + e0 + i % len] = v[u];
+          }
         }
       }
+      cluster_sync();
+    } else {
       __syncthreads();
     }
     int slot = 0;
     for (int off = 1; off < n_maps; ++off) {
       for (int u = 0; u < slots[off - 1]; ++u, ++slot) {
-        const int r = table[(long long)t * total_slots + slot];
-        if (r < 0) continue;  // uniform across the CTA
-        produce_row<T>(maps, res, off, n_maps, r, n, ws, out, p);
-        __syncthreads();
+        const int r = srow[slot];
+        if (r < 0) continue;  // uniform across the cluster
+        produce_row<T>(maps, res, off, n_maps, r, n, rank, ws, out, p, sbias,
+                       sm, rowbase, tapoff);
+        cluster_sync();
       }
     }
   }
 }
 
+template <typename T>
+cudaError_t set_attributes(int smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_span_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fused_span_kernel<T>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
+}
+
+void config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int grid,
+            int cluster, int smem, cudaStream_t s) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(grid);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+template <typename T>
+int max_clusters(int cluster, int smem, int* count) {
+  cudaError_t e = set_attributes<T>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  config(&cfg, &attr, cluster, cluster, smem, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(count, fused_span_kernel<T>, &cfg));
+}
+
+template <typename T>
+int launch(const int* d, const SpanPtrs& p, int batch, int cluster,
+           int smem, cudaStream_t s) {
+  cudaError_t e = set_attributes<T>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  config(&cfg, &attr, batch * cluster, cluster, smem, s);
+  e = cudaLaunchKernelEx(&cfg, fused_span_kernel<T>, d, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
+// memory the device holds at once, into *count; returns the CUDA error.
+extern "C" int occam_fused_span_max_clusters(int dtype, int cluster,
+                                             int smem, int* count) {
+  switch (dtype) {
+    case 0: return max_clusters<float>(cluster, smem, count);
+    case 1: return max_clusters<__nv_bfloat16>(cluster, smem, count);
+    case 2: return max_clusters<__half>(cluster, smem, count);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // dtype: 0 float32, 1 bfloat16, 2 float16 (activations; weights and biases
-// are float32). Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() of the launch.
+// are float32). One cluster of `cluster` CTAs per image, `smem` bytes of
+// dynamic shared memory each; the descriptor's tiles must be those of
+// this cluster size. Launches on `stream`, does not synchronise, and
+// returns the launch's CUDA error.
 extern "C" int occam_fused_span_launch(
     int dtype, const void* desc, const void* x, void* out, void* ws,
     long long ws_per_image, const void* const* w, const void* const* bias,
     int n_conv, const void* const* src, int n_src, void* const* spill,
-    int n_spill, int batch, void* stream) {
+    int n_spill, int batch, int cluster, int smem, void* stream) {
   if (n_conv > kMaxConv || n_src > kMaxSrc || n_spill > kMaxSpill ||
-      batch < 1) {
+      batch < 1 || cluster < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SpanPtrs p = {};
@@ -251,17 +723,9 @@ extern "C" int occam_fused_span_launch(
   const int* d = static_cast<const int*>(desc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      fused_span_kernel<float><<<batch, kThreads, 0, s>>>(d, p);
-      break;
-    case 1:
-      fused_span_kernel<__nv_bfloat16><<<batch, kThreads, 0, s>>>(d, p);
-      break;
-    case 2:
-      fused_span_kernel<__half><<<batch, kThreads, 0, s>>>(d, p);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return launch<float>(d, p, batch, cluster, smem, s);
+    case 1: return launch<__nv_bfloat16>(d, p, batch, cluster, smem, s);
+    case 2: return launch<__half>(d, p, batch, cluster, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

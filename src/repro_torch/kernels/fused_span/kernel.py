@@ -1,24 +1,47 @@
 """Wrapper of the Hopper fused-span kernel (``csrc/fused_span.cu``).
 
-The TPU kernel (``repro/kernels/fused_span/kernel.py``) is generated and
+The TPU kernel (``repro/kernels/fused_span/kernel.py``: ``_span_kernel``,
+launched by ``_span_pallas`` through ``pl.pallas_call``) is generated and
 unrolled per span. Compiling per span with nvcc would cost seconds each,
 so the CUDA kernel is compiled once and reads a per-span *descriptor*:
 map geometry, ring caps and ring offsets into the workspace, the residual
-table, the spill list, and the schedule's slot table and arrivals, all
-int32. The descriptor is built from ``closure.span_schedule`` and sent to
-the device once per (schedule, device), then cached. The pointers of one
-call (input, output, workspace, weights, biases, residual sources,
-spills) travel by value as kernel parameters, so new params or inputs
-never rebuild a descriptor.
+table, the spill list, the schedule's slot table and arrivals, and the
+launch geometry, all int32. The descriptor is built from
+``closure.span_schedule`` and :func:`span_geometry` once per (span,
+spill, tile height, dtype, device) and cached with the device's answer
+on cluster placement, so a launch does no host-side planning. The
+pointers of one call (input, output, workspace, weights, biases,
+residual sources, spills) travel by value as kernel parameters, so new
+params or inputs never rebuild a descriptor.
+
+Launch geometry (the plain functions :func:`row_tile` and
+:func:`span_geometry`, checked on the CPU by the tests). One
+thread-block cluster of 16 CTAs of 256 threads works on one image, or
+of 8 CTAs where the device cannot place 16: a launch-shape choice,
+recorded in ``last_launch``. A CTA uses at most 128 registers and half
+an SM's shared memory, so two share an SM and a batch of 8 clusters of
+16 is resident at once. Each CTA owns a fixed tile of every map's row,
+``tw`` columns by ``tc`` channels, picked per map so the cluster's tiles
+cover the row once with the least work on the busiest CTA. A conv row is
+an implicit GEMM over K = ``k * k * C_in``, staged through shared memory
+in 2-4 chunks: as the CTA's input window, ``bk`` input channels a chunk,
+where C_in is a multiple of 4 and the window holds fewer values than
+im2col rows; else as im2col rows, ``bk`` K indices a chunk. K is split
+over ``ks`` thread groups when the tile is small. What bounds the kernel
+on the H100 and what the design does about it is in the source's header
+note.
 
 The rings live in a device-memory workspace of exactly
 ``batch x schedule.scratch_elems()`` elements, allocated here with
 ``torch.empty``; the kernel launches on the current stream, does not
-synchronise, and ``launches`` counts its launches.
+synchronise, and ``launches`` counts its launches. A span the geometry
+cannot serve (a kernel wider than 32, a row tile over 16 x 256 outputs,
+no cluster the device can place) raises; there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -29,21 +52,175 @@ from .. import _build
 
 # kernel launches since import (or since the caller last reset it)
 launches = 0
+# the shape of the last launch: clusters, CTAs per cluster, threads, bytes
+# of dynamic shared memory, and how many clusters the device holds at once
+last_launch: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pointer-table sizes of the kernel's by-value SpanPtrs
 MAX_CONV, MAX_SRC, MAX_SPILL = 128, 8, 8
 
 # field counts of the descriptor records (csrc/fused_span.cu enums)
-_H_LEN, _M_LEN, _R_LEN = 10, 13, 5
+_H_LEN, _M_LEN, _R_LEN = 14, 20, 5
 
-_descriptors: dict = {}
+# launch geometry (csrc/fused_span.cu constants)
+THREADS = 256            # threads per CTA (kThreads)
+MICRO = 4                # a thread's register tile: 4 columns x 4 channels
+MAX_K = 32               # widest conv or pool window (kMaxK)
+MAX_TAPS = 128           # most taps (k * k) of a window-staged conv
+MAX_BK = 512             # largest K-chunk (a power of two)
+MAX_STAGES = 4           # K-chunks held in shared memory at once
+SMEM_LIMIT = 232_448     # shared memory a CTA may use on the H100
+# the kernel's static shared memory: row bases and the tap table
+STATIC_SMEM = 8 * MAX_K + 4 * MAX_TAPS
+# dynamic shared memory per CTA, so two CTAs share an SM's 228 KB; the
+# K-chunks leave DESC_RESERVE of it to the descriptor's copy
+SMEM_BUDGET = 114_688
+DESC_RESERVE = 2_048
+CLUSTER_SIZES = (16, 8)  # the cluster sizes tried, largest first
+
+_plans: dict = {}
+_cluster_choice: dict = {}
+
+
+@dataclass(frozen=True)
+class RowTile:
+    """A CTA's share of one map's rows: ``tw`` columns x ``tc`` channels,
+    ``n_wt`` x ``n_ct`` tiles per row (rank -> tile ``(rank // n_ct,
+    rank % n_ct)``). For a conv, how A is staged (``window``: the input
+    window, K chunked over input channels; else im2col, K chunked as is),
+    the chunk ``bk`` (input channels, or K indices), the K-split groups
+    ``ks``, the chunks held in shared memory ``stages``, and ``smem`` the
+    dynamic shared memory it needs (bytes)."""
+    tw: int
+    tc: int
+    n_wt: int
+    n_ct: int
+    bk: int = 0
+    ks: int = 0
+    stages: int = 0
+    smem: int = 0
+    window: bool = False
+
+    def tiles(self, cluster: int, w: int, c: int):
+        """(x0, nx, c0, nc) of each rank's tile, empty ones included."""
+        out = []
+        for rank in range(cluster):
+            x0 = (rank // self.n_ct) * self.tw
+            c0 = (rank % self.n_ct) * self.tc
+            out.append((x0, max(0, min(self.tw, w - x0)), c0,
+                        max(0, min(self.tc, c - c0))))
+        return out
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _stage_bytes(twp: int, tc: int, k: int, stride: int, bk: int,
+                 window: bool) -> int:
+    """One K-chunk in shared memory, fp32: the A part (the window
+    W[k][(twp - 1) * stride + k][bk + 4], or im2col A[twp][bk + 4]) and
+    B[kc][tc], kc = k * k * bk or bk K indices."""
+    if window:
+        wcols = (twp - 1) * stride + k
+        return (k * wcols * (bk + MICRO) + k * k * bk * tc) * 4
+    return (twp * (bk + MICRO) + bk * tc) * 4
+
+
+def row_tile(kind: str, k: int, c_in: int, w: int, c: int,
+             cluster: int, stride: int = 1) -> RowTile:
+    """The tile of a ``w`` x ``c`` output row for each CTA of a cluster.
+
+    Channel tiles are multiples of 4 (a thread's register tile); among
+    the tilings with at most ``cluster`` tiles, the one with the least
+    padded work on one CTA wins, then the one staging the fewest A and B
+    values per K index. A conv's K-chunk and stage count keep the most of
+    K in as few chunks as ``SMEM_BUDGET - DESC_RESERVE`` holds, then as
+    many of them in flight as fit. Raises ValueError
+    when no tiling fits 16 x 256 outputs per CTA (a 4 x 4 register tile
+    per thread) or the window is wider than the kernel takes."""
+    if k > MAX_K:
+        raise ValueError(f"{kind} window {k} is wider than the fused-span "
+                         f"kernel's {MAX_K}")
+    best = None
+    for tc in range(MICRO, _ceil(c, MICRO) * MICRO + 1, MICRO):
+        n_ct = _ceil(c, tc)
+        if n_ct > cluster:
+            continue
+        tw = _ceil(w, cluster // n_ct)
+        twp = _ceil(tw, MICRO) * MICRO
+        if twp * tc > THREADS * MICRO * MICRO:
+            continue
+        key = (twp * tc, twp + tc)
+        if best is None or key < best[0]:
+            best = (key, tw, tc, _ceil(w, tw), n_ct)
+    if best is None:
+        raise ValueError(f"no tiling of a {w} x {c} row over {cluster} CTAs "
+                         f"fits {THREADS * MICRO * MICRO} outputs per CTA")
+    _key, tw, tc, n_wt, n_ct = best
+    if kind != "conv":
+        return RowTile(tw, tc, n_wt, n_ct)
+    twp, kdim = _ceil(tw, MICRO) * MICRO, k * k * c_in
+    # the window stages each input value once, im2col once per tap: the
+    # window wins for k > 1 when C_in allows 16-byte channel groups
+    window = (c_in % MICRO == 0 and k * k <= MAX_TAPS
+              and (twp - 1) * stride + k < twp * k)
+    span = c_in if window else kdim  # what the chunks split
+    choice = None
+    bk = MICRO
+    while bk <= min(MAX_BK, max(MICRO, 1 << (span - 1).bit_length())):
+        for stages in range(2, MAX_STAGES + 1):
+            smem = stages * _stage_bytes(twp, tc, k, stride, bk, window)
+            if smem > SMEM_BUDGET - DESC_RESERVE:
+                break
+            # fewest chunks first (each costs a round trip), then depth
+            key = (min(bk, span), stages)
+            if choice is None or key > choice[0]:
+                choice = (key, bk, stages)
+        bk *= 2
+    if choice is None:
+        raise ValueError(f"a {k}x{k} conv tile of {tw} x {tc} outputs does "
+                         f"not fit {SMEM_BUDGET - DESC_RESERVE} bytes of "
+                         f"shared memory")
+    _key, bk, stages = choice
+    kc = k * k * bk if window else bk
+    ks = min(THREADS // ((twp // MICRO) * (tc // MICRO)), kc // MICRO)
+    smem = max(stages * _stage_bytes(twp, tc, k, stride, bk, window),
+               ks * twp * tc * 4)
+    return RowTile(tw, tc, n_wt, n_ct, bk, ks, stages, smem, window)
+
+
+@dataclass(frozen=True)
+class SpanGeometry:
+    """The launch geometry of one span: one cluster of ``cluster`` CTAs
+    per image, ``THREADS`` threads each, ``smem`` bytes of shared memory
+    for the K-chunks (the launch adds the descriptor's copy, see
+    :func:`launch_smem`), and each map's :class:`RowTile` (``None`` for
+    the input)."""
+    cluster: int
+    smem: int
+    tiles: tuple
+
+
+def span_geometry(net: NetSpec, a: int, b: int,
+                  cluster: int = CLUSTER_SIZES[0]) -> SpanGeometry:
+    """Each map's row tile of SPAN(a, b) for clusters of ``cluster``."""
+    tiles = [None]
+    for layer in net.layers[a:b]:
+        tiles.append(row_tile(layer.kind, layer.k, layer.in_ch,
+                              layer.out_w, layer.out_ch, cluster,
+                              layer.stride))
+    smem = max([16] + [t.smem for t in tiles[1:]])
+    return SpanGeometry(cluster, smem, tuple(tiles))
 
 
 def _descriptor(net: NetSpec, a: int, b: int,
                 schedule: closure.SpanSchedule, spill: tuple[int, ...],
-                src_keys: tuple[int, ...]) -> list[int]:
+                src_keys: tuple[int, ...],
+                cluster: int = CLUSTER_SIZES[0]) -> list[int]:
     """The int32 descriptor the kernel reads for SPAN(a, b)."""
+    geom = span_geometry(net, a, b, cluster)
     n_maps = b - a + 1
     maps: list[int] = []
     res: list[int] = []
@@ -55,6 +232,7 @@ def _descriptor(net: NetSpec, a: int, b: int,
         kind = k = stride = pad = 0
         conv = -1
         edges = []
+        tile = [0] * 7
         if off > 0:
             layer = net.layers[m - 1]
             kind = 0 if layer.kind == "conv" else 1
@@ -62,13 +240,16 @@ def _descriptor(net: NetSpec, a: int, b: int,
             if layer.kind == "conv":
                 conv, n_conv = n_conv, n_conv + 1
             edges = [s for (s, t) in net.residual_edges if t == m]
+            t = geom.tiles[off]
+            tile = [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages, int(t.window)]
         cap = schedule.ring_caps[off] if off < n_maps - 1 else 0
         res0 = len(res) // _R_LEN
         for s in edges:
             src = [1, src_keys.index(s)] if s < a else [0, s - a]
             res += src + list(net.map_shape(s))
         maps += [kind, k, stride, pad, h, w, c, cap, ring_off, res0,
-                 len(edges), spill.index(m) if m in spill else -1, conv]
+                 len(edges), spill.index(m) if m in spill else -1,
+                 conv] + tile
         ring_off += cap * w * c
     if ring_off != schedule.scratch_elems():
         raise AssertionError("ring offsets disagree with the schedule's "
@@ -79,20 +260,77 @@ def _descriptor(net: NetSpec, a: int, b: int,
     for part in body:
         offsets.append(pos)
         pos += len(part)
+    # shared memory: the descriptor up to its table, the step's table row,
+    # the biases of the widest conv tile, then the K-chunks (4-int aligned)
+    row = _ceil(offsets[-1], 4) * 4
+    bias = row + _ceil(schedule.total_slots, 4) * 4
+    stage = bias + _ceil(max([t.tc for t in geom.tiles[1:]]), 4) * 4
     header = [n_maps, schedule.in_rows, schedule.n_steps,
-              schedule.total_slots, len(res) // _R_LEN] + offsets
+              schedule.total_slots, len(res) // _R_LEN, cluster, row, bias,
+              stage] + offsets
     return header + [v for part in body for v in part]
 
 
-def _device_descriptor(net, a, b, schedule, spill, src_keys,
-                       device: torch.device) -> torch.Tensor:
-    key = (net, a, b, schedule, spill, src_keys, device)
-    desc = _descriptors.get(key)
-    if desc is None:
-        desc = torch.tensor(_descriptor(net, a, b, schedule, spill, src_keys),
-                            dtype=torch.int32, device=device)
-        _descriptors[key] = desc
-    return desc
+def launch_smem(geom: SpanGeometry, desc: list[int]) -> int:
+    """Dynamic shared memory of a launch: the descriptor's copy, the table
+    row and biases (``desc``'s stage offset), then the K-chunks."""
+    return 4 * desc[8] + geom.smem
+
+
+def _max_clusters(dtype: int, cluster: int, smem: int,
+                  device: torch.device) -> int:
+    """How many clusters of ``cluster`` CTAs the device holds at once."""
+    fn = _build.library("fused_span").occam_fused_span_max_clusters
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, ctypes.POINTER(i)]
+        fn.restype = i
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(dtype, cluster, smem, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"fused-span occupancy query failed: CUDA error "
+                           f"{rc}")
+    return count.value
+
+
+def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
+               out_rows: int, src_keys: tuple[int, ...], dtype: torch.dtype,
+               device: torch.device):
+    """(workspace elems per image, geometry, launch shared memory, resident
+    clusters, device descriptor) of one span, built once per (span, spill,
+    tile height, dtype, device) and cached: a launch then does no schedule
+    or geometry work on the host.
+
+    The geometry is the one for the largest cluster size the device can
+    place (16, else 8); RuntimeError when it can place neither, ValueError
+    when the span needs more shared memory than a CTA has."""
+    key = (net, a, b, spill, out_rows, dtype, device)
+    plan = _plans.get(key)
+    if plan is not None:
+        return plan
+    schedule = closure.span_schedule(net, a, b, spill=spill,
+                                     out_rows=out_rows)
+    for cluster in CLUSTER_SIZES:
+        geom = span_geometry(net, a, b, cluster)
+        words = _descriptor(net, a, b, schedule, spill, src_keys, cluster)
+        smem = launch_smem(geom, words)
+        if smem + STATIC_SMEM > SMEM_LIMIT:
+            raise ValueError(f"span ({a}, {b}) needs {smem} bytes of shared "
+                             f"memory per CTA; the H100 has "
+                             f"{SMEM_LIMIT - STATIC_SMEM}")
+        query = (_DTYPE_CODES[dtype], cluster, smem, device)
+        if query not in _cluster_choice:
+            _cluster_choice[query] = _max_clusters(*query)
+        resident = _cluster_choice[query]
+        if resident >= 1:
+            desc = torch.tensor(words, dtype=torch.int32, device=device)
+            plan = _plans[key] = (schedule.scratch_elems(), geom, smem,
+                                  resident, desc)
+            return plan
+    raise RuntimeError(f"span ({a}, {b}): the device places no cluster of "
+                       f"{' or '.join(map(str, CLUSTER_SIZES))} CTAs with "
+                       f"{smem} bytes of shared memory each")
 
 
 def crossing_source_keys(net: NetSpec, a: int, b: int) -> tuple[int, ...]:
@@ -120,7 +358,7 @@ def _launcher():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, p, ctypes.c_longlong, p, p, i, p, i, p, i,
-                       i, p]
+                       i, i, i, p]
         fn.restype = i
     return fn
 
@@ -142,12 +380,11 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     {} per pool); ``srcs`` maps each residual source crossing into the
     span to its (B, h, w, c) map; ``spill`` lists interior maps to write
     out. Returns ``(L_b maps, {spilled map -> array})``. Raises on a CPU
-    tensor, an unsupported dtype, or a failed build or launch.
+    tensor, an unsupported dtype, a span outside the launch geometry, or a
+    failed build or launch.
     """
     global launches
     spill = tuple(sorted(set(spill)))
-    schedule = closure.span_schedule(net, a, b, spill=spill,
-                                     out_rows=out_rows)
     src_keys = crossing_sources(net, a, b, srcs)
     if not xs.is_cuda:
         raise ValueError("span_cuda_call takes CUDA tensors; "
@@ -183,9 +420,9 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
                       device=dev)
     spills = [torch.empty((batch,) + net.map_shape(m), dtype=xs.dtype,
                           device=dev) for m in spill]
-    per_image = schedule.scratch_elems()
+    per_image, geom, smem, resident, desc = _span_plan(
+        net, a, b, spill, out_rows, src_keys, xs.dtype, dev)
     workspace = torch.empty(batch * per_image, dtype=xs.dtype, device=dev)
-    desc = _device_descriptor(net, a, b, schedule, spill, src_keys, dev)
     launch = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -193,10 +430,15 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
                     out.data_ptr(), workspace.data_ptr(), per_image,
                     _ptr_array(w_list), _ptr_array(b_list), len(w_list),
                     _ptr_array(src_list), len(src_list),
-                    _ptr_array(spills), len(spills), batch, stream)
+                    _ptr_array(spills), len(spills), batch, geom.cluster,
+                    smem, stream)
     if rc != 0:
         raise RuntimeError(f"fused-span kernel launch failed: CUDA error {rc}")
     launches += 1
+    last_launch.clear()
+    last_launch.update(clusters=batch, cluster=geom.cluster,
+                       ctas=batch * geom.cluster, threads=THREADS,
+                       smem=smem, resident_clusters=resident)
     return out, dict(zip(spill, spills))
 
 

@@ -41,6 +41,22 @@ CASES = [
     ("res-src-spill", [(C, 3, 1, 1, 4)] * 3 + [(C, 3, 2, 1, 8),
                                                 (C, 3, 1, 1, 8)],
      10, 3, ((0, 2), (1, 4), (2, 5)), (1, 4)),
+    # the cluster's split: a 30-wide row whose tiles give all 16 CTAs
+    # work, W_out and C_out not multiples of the tile
+    ("wide-40-72", [(C, 3, 1, 1, 72), (P, 2, 2, 0, 0)], 30, 40, (), None),
+    # K = 3 * 3 * 96 = 864, over three staging chunks of 256
+    ("deep-k-96", [(C, 3, 1, 1, 96), (C, 3, 1, 1, 24)], 8, 3, (), None),
+    # ResNet's stem, 7x7 stride 2 pad 3 on 3 channels, and AlexNet's,
+    # 11x11 stride 4
+    ("stem-7x7-s2", [(C, 7, 2, 3, 16), (P, 3, 2, 1, 0)], 32, 3, (), None),
+    ("stem-11x11-s4", [(C, 11, 4, 0, 16), (P, 3, 2, 0, 0)], 39, 3, (),
+     None),
+    # stride-2 option-A shortcut padding channels 8 -> 16 (ResNet's
+    # 64 -> 128 ratio at small width), from a ring and from memory
+    ("opt-a-ring", [(C, 3, 1, 1, 8), (C, 3, 2, 1, 16), (C, 3, 1, 1, 16)],
+     12, 3, ((1, 3),), None),
+    ("opt-a-memory", [(C, 3, 1, 1, 8), (C, 3, 2, 1, 16), (C, 3, 1, 1, 16)],
+     12, 3, ((1, 3),), (2, 3)),
 ]
 
 

@@ -1,7 +1,10 @@
 """The port's fused-span module against the reference's: the rowops twins,
 ``span_forward`` on CPU tensors (the kernel's plain version) against the
 reference kernel in interpret mode, the validation errors and the
-workspace size. The CUDA kernel itself is tested in test_torch_cuda.py."""
+workspace size, and the CUDA kernel's launch geometry. The CUDA kernel
+itself is tested in test_torch_cuda.py."""
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,17 +15,19 @@ from repro.kernels.fused_span import rowops as j_rowops
 from repro.kernels.fused_span.kernel import span_kernel_vmem_elems
 from repro.kernels.fused_span.ops import fused_span as j_fused_span
 from repro.kernels.fused_span.ops import span_forward as j_span_forward
-from repro_torch import convert
+from repro_torch import convert, occam
 from repro_torch.core import closure
 from repro_torch.core.graph import chain
 from repro_torch.kernels.fused_span import kernel, rowops
 from repro_torch.kernels.fused_span.ops import (fused_span, fused_span_ref,
                                                 span_forward,
                                                 span_kernel_scratch_elems)
-from repro_torch.models import cnn
+from repro_torch.models import cnn, zoo
+from repro_torch.runtime import span_engine
 
 C, P = "conv", "pool"
 TOL = dict(rtol=1e-4, atol=1e-4)
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 
 # (name, specs, hw, in_ch, residual edges, span, out_rows)
 CASES = [
@@ -199,3 +204,92 @@ def test_workspace_is_exactly_the_closure(name, specs, hw, ch, edges, span,
     sched = closure.span_schedule(net, a, b, spill=spill, out_rows=out_rows)
     desc = kernel._descriptor(net, a, b, sched, spill, src_keys)
     assert desc[:3] == [b - a + 1, sched.in_rows, sched.n_steps]
+
+
+def _geometry_spans(name):
+    """(net, [(a, b)]) of the plans whose spans the geometry must serve:
+    the two ``chip_smoke.py`` runs and VGG at two capacities."""
+    if name == "resnet18":
+        net = zoo.resnet18()
+        cuts = [0, 12, 15, 16, 17, net.n_layers]
+        return net, list(zip(cuts, cuts[1:]))
+    if name == "alexnet":
+        plan = occam.load_plan(str(EXAMPLES / "alexnet.plan.json"))
+    else:
+        plan = occam.plan(zoo.vggnet(), int(name.split("-")[1]))
+    return plan.net, [(r.start, r.end) for r in plan.routes]
+
+
+@pytest.mark.parametrize("cluster", kernel.CLUSTER_SIZES)
+@pytest.mark.parametrize("name", ["resnet18", "alexnet", "vggnet-786432",
+                                  "vggnet-3145728"])
+def test_launch_geometry_tiles_rows_once(name, cluster):
+    """For every map of every span: the cluster's CTA tiles cover the
+    row's W_out x C_out exactly once, a conv tile's register tiles and
+    K-split groups fit the CTA's threads, its K-chunks fit the shared
+    memory of two CTAs per SM (so within the H100's 232,448 bytes per
+    block), and the
+    descriptor carries the tiles. ResNet-18 at batch 8 runs on >= 128 CTAs
+    with clusters of 16."""
+    net, spans = _geometry_spans(name)
+    if name == "resnet18":
+        assert [(a, b) for a, b in spans] == [(0, 12), (12, 15), (15, 16),
+                                              (16, 17), (17, 18)]
+        if cluster == 16:
+            assert 8 * kernel.span_geometry(net, 0, 12, cluster).cluster \
+                >= 128
+    for a, b in spans:
+        geom = kernel.span_geometry(net, a, b, cluster)
+        assert geom.cluster == cluster
+        assert geom.smem + kernel.STATIC_SMEM <= 232_448
+        assert geom.tiles[0] is None and len(geom.tiles) == b - a + 1
+        for off, layer in enumerate(net.layers[a:b], start=1):
+            t = geom.tiles[off]
+            assert t.n_wt * t.n_ct <= cluster and t.tc % 4 == 0
+            cover = np.zeros((layer.out_w, layer.out_ch), np.int64)
+            for x0, nx, c0, nc in t.tiles(cluster, layer.out_w,
+                                          layer.out_ch):
+                cover[x0:x0 + nx, c0:c0 + nc] += 1
+            assert (cover == 1).all(), (name, a, b, off)
+            assert t.smem <= geom.smem
+            if layer.kind != "conv":
+                assert (t.bk, t.ks, t.smem) == (0, 0, 0)
+                continue
+            twp = -(-t.tw // 4) * 4
+            assert twp * t.tc <= 16 * kernel.THREADS
+            assert t.bk & (t.bk - 1) == 0 and 4 <= t.bk <= kernel.MAX_BK
+            assert 2 <= t.stages <= kernel.MAX_STAGES
+            kc = layer.k ** 2 * t.bk if t.window else t.bk
+            assert 1 <= t.ks <= kc // 4
+            assert t.ks * (twp // 4) * (t.tc // 4) <= kernel.THREADS
+            assert t.smem >= t.stages * kernel._stage_bytes(
+                twp, t.tc, layer.k, layer.stride, t.bk, t.window)
+            assert t.smem >= t.ks * twp * t.tc * 4
+            if t.window:  # channel groups of 4, fewer values than im2col
+                assert layer.in_ch % 4 == 0
+                assert (twp - 1) * layer.stride + layer.k < twp * layer.k
+            assert t.smem <= kernel.SMEM_BUDGET - kernel.DESC_RESERVE
+        spill = span_engine.span_spills(net, [c for c in (a, b)
+                                              if 0 < c < net.n_layers], a, b)
+        sched = closure.span_schedule(net, a, b, spill=spill)
+        desc = kernel._descriptor(net, a, b, sched, spill,
+                                  kernel.crossing_source_keys(net, a, b),
+                                  cluster)
+        assert desc[5] == cluster
+        assert kernel.launch_smem(geom, desc) + kernel.STATIC_SMEM \
+            <= 232_448
+        maps = desc[desc[9]:desc[9] + (b - a + 1) * kernel._M_LEN]
+        for off in range(1, b - a + 1):
+            t = geom.tiles[off]
+            rec = maps[off * kernel._M_LEN:(off + 1) * kernel._M_LEN]
+            assert rec[-7:] == [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages,
+                                int(t.window)]
+
+
+def test_launch_geometry_raises_outside_the_kernel():
+    """No fallback: a window wider than the kernel takes, or a row no
+    tiling fits, raises at geometry time."""
+    with pytest.raises(ValueError, match="wider"):
+        kernel.row_tile("conv", 33, 3, 8, 8, 16)
+    with pytest.raises(ValueError, match="no tiling"):
+        kernel.row_tile("conv", 3, 3, 4096, 512, 16)
