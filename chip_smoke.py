@@ -66,18 +66,30 @@ Llama path's tensors are freed and the peak-memory counter reset:
    bf16 case within 5e-2, one case with a nonzero state in and the state
    out, and the slice's full-width shapes, x (4, 1024, 64, 64) against
    b/c (4, 1024, 1, 128) and a ragged (1, 200, ...) prompt, y and final
-   state held to max|kernel - plain| <= 1e-3 * max|plain|.
+   state held to max|kernel - plain| <= 1e-3 * max|plain|. The scan's
+   first kernel, each chunk's C B^T once per group, is also held on its
+   own against its plain version on the same cases and bands. Since the
+   plain version shares the kernels' C B^T per group, the scan's y is
+   also held against ``ssd_ref``, the sequential recurrence on B and C
+   gathered to the heads, on the fp32 grid (same band) and at full width
+   (1e-3 * max|ref|).
 9. Main path ``mamba2-1.3b-serve``: ``build_model`` on the GPU, then the
    same three requests through ``launch.serve.generate``, one kernel
    launch per layer in each prefill (144 in all; decode adds none; the
    flash kernel is not launched); the first request's prefill logits and
    every layer's SSM state and conv window against the
    ``ssd_impl="chunked"`` prefill within 1e-3 * max|chunked|.
-10. Times on the first request's shape: the kernel, its plain version and
-   the chunked twin (CUDA events, median of 5 after a warm-up) beside the
-   kernel's bound, counted from the recurrence (4 N P FLOP per token and
-   head); the whole prefill and one decode step; peak device memory; a
-   ``torch.profiler`` breakdown of one prefill and one decode step.
+10. Times on the first request's shape: the scan call (both kernels),
+   its plain version and the chunked twin (CUDA events around one call,
+   median of 5 after a warm-up, as for every kernel) beside the kernel's
+   bound, counted from the recurrence (4 N P FLOP per token and head),
+   and the C B^T pre-pass alone; beside them, the mean of 20 scan calls
+   back to back, as they follow each other on the model's path; the
+   launch shape (CTAs, threads, dynamic shared memory, CTAs resident per
+   SM, at least 2 for the scan) and the ptxas registers and spills of
+   both kernels' fp32 instantiations; the whole prefill and one decode
+   step; peak device memory; a ``torch.profiler`` breakdown of one
+   prefill and one decode step.
 
 The line before the last is the kernels' JSON summary, one record per
 path with that path's launches, errors and times; the last line is
@@ -245,12 +257,14 @@ def ssd_cost(bsz, t, h, g, p, n, state_in, itemsize=4):
         "operations" if t_ops >= t_mem else "bytes"
 
 
-def fp32_ptxas(log):
-    """'N registers, S bytes spill stores' of the fused-span kernel's fp32
-    instantiation, from the nvcc -Xptxas=-v log."""
+def fp32_ptxas(log, mangled):
+    """'N registers, S bytes spill stores' of a kernel's fp32
+    instantiation, named by a piece of its mangled name (the template's
+    name, then ``If`` for float and any further template arguments), from
+    the nvcc -Xptxas=-v log."""
     lines = log.read_text().splitlines() if log.exists() else []
     for i, line in enumerate(lines):
-        if "Function properties for" in line and "kernelIfE" in line:
+        if "Function properties for" in line and mangled in line:
             props = " ".join(lines[i + 1:i + 3])
             regs = re.search(r"Used (\d+) registers", props)
             spill = re.search(r"(\d+) bytes spill stores", props)
@@ -259,19 +273,23 @@ def fp32_ptxas(log):
     return "not in the build log"
 
 
-def time_ms(torch, fn, reps=5):
-    """Median device time of ``fn`` over ``reps`` runs after a warm-up,
-    from CUDA events on the current stream."""
+def time_ms(torch, fn, reps=5, calls=1):
+    """Median over ``reps`` samples, after a warm-up, of the time of
+    ``calls`` back-to-back calls of ``fn`` divided by ``calls``, from CUDA
+    events on the current stream. With one call a sample also holds the
+    host's work before the first launch; with many, that work overlaps
+    the device's work on the calls before it, as on a model's path."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -460,14 +478,17 @@ def lm_serving(torch, seed, compare) -> dict:
             "bound_by": bound_by, "library_ms": n * l_ms}
 
 
-def mamba_serving(torch, seed, compare) -> dict:
-    """Phases 8-10: the SSD-scan kernel against its plain version,
+def mamba_serving(torch, seed, compare, ssd_log) -> dict:
+    """Phases 8-10: the SSD-scan kernels against their plain versions,
     Mamba2-1.3B served at full width through ``generate``, and times.
-    Returns the kernel's record for the ``kernels`` line."""
+    ``ssd_log`` is the kernels' nvcc log. Returns the scan's record for
+    the ``kernels`` line."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.ssd_scan import kernel as skernel
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain_call
+    from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_cb_plain,
+                                                  ssd_ref,
+                                                  ssd_scan_plain_call)
     from repro_torch.launch.serve import generate
     from repro_torch.models import mamba
     from repro_torch.models.api import build_model, make_batch
@@ -490,17 +511,41 @@ def mamba_serving(torch, seed, compare) -> dict:
                          0.0, atol)
         return err * scale
 
+    def oracle(x, a, b, c):
+        """ssd_ref, the sequential recurrence, with B and C gathered to
+        the heads: it shares no C B^T grouping with the kernels."""
+        bsz, t, h, p = x.shape
+        rep = h // b.shape[2]
+        heads = [v.repeat_interleave(rep, dim=2) for v in (b, c)]
+        flat = [v.transpose(1, 2).reshape(bsz * h, t, -1)
+                for v in [x] + heads]
+        af = a.transpose(1, 2).reshape(bsz * h, t)
+        y = ssd_ref(flat[0], af, flat[1], flat[2])
+        return y.reshape(bsz, h, t, p).transpose(1, 2)
+
+    def check_cb(name, b, c, atol):
+        """The C B^T pre-pass against its plain version at its chunk."""
+        got = skernel.ssd_chunk_cb_cuda_call(b, c)
+        want = ssd_chunk_cb_plain(b, c, chunk=skernel.CHUNK)
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: C B^T {tuple(got.shape)}")
+        return close_scaled(f"{name} C B^T", got, want, atol)
+
     # ---- 8. SSD-scan kernel vs plain, on the card -------------------------
-    worst = 0.0
+    worst = cb_worst = ref_worst = 0.0
     for case in SSD_CASES:
         x, a, b, c = scan_inputs(*case[:-1])
         got, _ = skernel.ssd_scan_cuda_call(x, a, b, c)
         want, _ = ssd_scan_plain_call(x, a, b, c, chunk=case[-1])
         worst = max(worst, close_scaled(f"ssd {case}", got, want, 2e-5))
+        ref_worst = max(ref_worst, close_scaled(
+            f"ssd {case} vs ssd_ref", got, oracle(x, a, b, c), 2e-5))
+        cb_worst = max(cb_worst, check_cb(f"ssd {case}", b, c, 2e-5))
     x, a, b, c = scan_inputs(*SSD_BF16_CASE[:-1], dtype=torch.bfloat16)
     got, _ = skernel.ssd_scan_cuda_call(x, a, b, c)
     want, _ = ssd_scan_plain_call(x, a, b, c, chunk=SSD_BF16_CASE[-1])
     close_scaled(f"ssd bf16 {SSD_BF16_CASE}", got, want, 5e-2)
+    check_cb(f"ssd bf16 {SSD_BF16_CASE}", b, c, 5e-2)
     bsz, t, h, g, p, n, chunk = SSD_STATE_CASE
     x, a, b, c = scan_inputs(bsz, t, h, g, p, n)
     s0 = torch.randn((bsz, h, n, p), generator=gen).to(dev)
@@ -515,7 +560,11 @@ def mamba_serving(torch, seed, compare) -> dict:
                              want_s, 2e-5))
     print(f"ssd kernel vs plain: {len(SSD_CASES) + 1} fp32 cases (one with "
           f"state in and out) within 2e-5 x max(|plain|, 1) (worst "
-          f"max|kernel-plain| {worst:.3e}), 1 bf16 case within 5e-2")
+          f"max|kernel-plain| {worst:.3e}), 1 bf16 case within 5e-2; C B^T "
+          f"pre-pass on the same {len(SSD_CASES)} fp32 cases within 2e-5 x "
+          f"max(|plain|, 1) (worst {cb_worst:.3e}) and the bf16 case; "
+          f"kernel y vs ssd_ref on the {len(SSD_CASES)} fp32 cases within "
+          f"2e-5 x max(|ref|, 1) (worst {ref_worst:.3e})")
     cfg = get_config("mamba2-1.3b")
     full_err = 0.0
     for shape in SSD_FULL_WIDTH:
@@ -526,15 +575,22 @@ def mamba_serving(torch, seed, compare) -> dict:
                                                 return_state=True)
         want, want_s = ssd_scan_plain_call(x, a, b, c, chunk=cfg.ssm.chunk,
                                            state0=s0, return_state=True)
+        cb_err, _ = compare(f"ssd full width {shape} C B^T",
+                            skernel.ssd_chunk_cb_cuda_call(b, c),
+                            ssd_chunk_cb_plain(b, c, chunk=skernel.CHUNK),
+                            rel=1e-3)
         err, scale = compare(f"ssd full width {shape} y", got, want,
                              rel=1e-3)
         s_err, s_scale = compare(f"ssd full width {shape} state", got_s,
                                  want_s, rel=1e-3)
+        r_err, r_scale = compare(f"ssd full width {shape} y vs ssd_ref",
+                                 got, oracle(x, a, b, c), rel=1e-3)
         full_err = max(full_err, err, s_err)
         print(f"ssd full width x {(bsz, t, h, p)} b/c {(bsz, t, g, n)}: "
               f"max|kernel-plain| y {err:.3e} (max|plain| {scale:.3e}), "
-              f"state {s_err:.3e} (max|plain| {s_scale:.3e}); band 1e-3 x "
-              f"max|plain|")
+              f"state {s_err:.3e} (max|plain| {s_scale:.3e}), C B^T "
+              f"{cb_err:.3e}; max|kernel-ssd_ref| y {r_err:.3e} (max|ref| "
+              f"{r_scale:.3e}); band 1e-3 x max|plain| and max|ref|")
     torch.cuda.synchronize()
 
     # ---- 9. main path: Mamba2-1.3B served at full width -------------------
@@ -629,8 +685,14 @@ def mamba_serving(torch, seed, compare) -> dict:
              ssm.d_state)
     x, a, bb, cc = scan_inputs(*shape)
     s0 = torch.zeros((b, shape[2], ssm.d_state, ssm.head_dim), device=dev)
-    k_ms = time_ms(torch, lambda: skernel.ssd_scan_cuda_call(
-        x, a, bb, cc, state0=s0, return_state=True))
+    def scan():
+        return skernel.ssd_scan_cuda_call(x, a, bb, cc, state0=s0,
+                                          return_state=True)
+
+    k_ms = time_ms(torch, scan)
+    k20_ms = time_ms(torch, scan, calls=20)
+    shape_k = dict(skernel.last_launch)
+    cb_ms = time_ms(torch, lambda: skernel.ssd_chunk_cb_cuda_call(bb, cc))
     p_ms = time_ms(torch, lambda: ssd_scan_plain_call(
         x, a, bb, cc, chunk=ssm.chunk, state0=s0, return_state=True))
     s0_g = s0.reshape(b, ssm.n_groups, -1, ssm.d_state, ssm.head_dim)
@@ -646,10 +708,24 @@ def mamba_serving(torch, seed, compare) -> dict:
     n = cfg.n_layers
     print(f"time ssd scan x {(b, s, shape[2], shape[4])} b/c "
           f"{(b, s, shape[3], shape[5])} fp32 with state in and out: kernel "
-          f"{k_ms:.4f} ms, plain (chunk {ssm.chunk}) {p_ms:.4f} ms, chunked "
+          f"{k_ms:.4f} ms (one call; mean of 20 calls back to back, as on "
+          f"the model's path: {k20_ms:.4f} ms), "
+          f"plain (chunk {ssm.chunk}) {p_ms:.4f} ms, chunked "
           f"twin (chunk {ssm.chunk}) {c_ms:.4f} ms; {flop / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.3f} MB, bound {bound:.4f} ms ({bound_by}), "
           f"kernel at {bound / k_ms * 100:.2f}% of bound")
+    if shape_k["ctas_per_sm"] < 2:
+        raise AssertionError(f"SSD scan holds {shape_k['ctas_per_sm']} CTA "
+                             f"per SM at N = {ssm.d_state}")
+    print(f"  launch ssd scan: C B^T pre-pass {shape_k['cb_ctas']} CTAs x "
+          f"{shape_k['threads']} threads, {cb_ms:.4f} ms alone; scan "
+          f"{shape_k['ctas']} CTAs x {shape_k['threads']} threads, "
+          f"{shape_k['smem']} bytes of dynamic shared memory, "
+          f"{shape_k['ctas_per_sm']} CTAs resident per SM, rows staged by "
+          f"{'cp.async' if shape_k['async_copies'] else 'registers'}; "
+          f"ptxas fp32 scan "
+          f"at N = 128: {fp32_ptxas(ssd_log, 'ssd_kernelIfLi128E')}; "
+          f"pre-pass: {fp32_ptxas(ssd_log, 'ssd_chunk_cbIfE')}")
     print(f"time {MAMBA_PATH} request 1 (batch {b}, prompt {s}): prefill "
           f"{prefill_ms:.3f} ms (CUDA events, median of 5), of which "
           f"{n} kernel calls {n * k_ms:.3f} ms = "
@@ -878,7 +954,8 @@ def main() -> int:
 
     # ---- 4. times -----------------------------------------------------------
     oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
-    span_ptxas = fp32_ptxas(libs["fused_span"].with_suffix(".log"))
+    span_ptxas = fp32_ptxas(libs["fused_span"].with_suffix(".log"),
+                            "fused_span_kernelIfE")
     for net_name, net, params, maps, a, b, kw in span_args:
         xs = maps[a]
         batch = xs.shape[0]
@@ -933,7 +1010,8 @@ def main() -> int:
     gc.collect()  # the Llama path's tensors go before Mamba's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ssd_rec = mamba_serving(torch, args.seed, compare)
+    ssd_rec = mamba_serving(torch, args.seed, compare,
+                            libs["ssd_scan"].with_suffix(".log"))
 
     # fused-span times: one batch-8 run of ResNet-18's five spans, one
     # batch-4 run of AlexNet's span; launches: each path's run in phase 3

@@ -1,10 +1,11 @@
 """Public op: the multi-head Mamba-2 SSD scan, routed by the tensors'
 device.
 
-A CUDA tensor launches the hand-written kernel (``kernel.py``), which
-reads each head's group by index and masks the ragged tail itself; a CPU
-tensor runs its plain PyTorch version (``ref.ssd_scan_plain_call``), which
-keeps the TPU kernel's per-chunk math. There is no fallback from one to
+A CUDA tensor launches the hand-written kernels (``kernel.py``: each
+chunk's C Bᵀ once per group, then the scan, which reads each head's group
+by index and masks the ragged tail itself); a CPU tensor runs their plain
+PyTorch version (``ref.ssd_scan_plain_call``), which keeps the TPU
+kernel's per-chunk math in the same two stages. There is no fallback from one to
 the other, and any other device raises.
 """
 from __future__ import annotations

@@ -5,12 +5,15 @@
 ``S_t = exp(a_t) S_{t-1} + B_t (x) x_t``, ``y_t = C_t^T S_t`` with an fp32
 state, one step at a time.
 
+``ssd_chunk_cb_plain`` is the plain version of the CUDA scan's first
+kernel: every chunk's C Bᵀ, once per (batch, group).
 ``ssd_scan_plain_call`` takes the CUDA kernel's arguments and computes
 the TPU kernel's per-chunk math (``repro/kernels/ssd_scan/kernel.py::
-_ssd_kernel``) as a loop over chunks batched over (batch, head): groups
-gathered to the heads and T padded with x = 0, a = 0 (decay 1), B = C = 0,
-as ``ops.py`` does for the TPU kernel, plus the optional state in and out
-that the model's prefill carries.
+_ssd_kernel``) in the CUDA kernels' two stages: C Bᵀ per group from
+``ssd_chunk_cb_plain``, then a loop over chunks batched over (batch,
+head), with T padded by x = 0, a = 0 (decay 1), B = C = 0 as ``ops.py``
+does for the TPU kernel, plus the optional state in and out that the
+model's prefill carries.
 """
 from __future__ import annotations
 
@@ -41,6 +44,24 @@ def _heads_first(v: torch.Tensor) -> torch.Tensor:
     return v.float().permute(0, 2, 1, 3).reshape(bsz * h, t, k)
 
 
+def _chunks(v: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, T, G, N) -> (B, G, ceil(T / chunk), chunk, N) in fp32, the
+    ragged tail padded with zeros."""
+    bsz, t, g, n = v.shape
+    pad = (-t) % chunk
+    v = F.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    return v.reshape(bsz, (t + pad) // chunk, chunk, g, n).permute(
+        0, 3, 1, 2, 4)
+
+
+def ssd_chunk_cb_plain(b: torch.Tensor, c: torch.Tensor, *,
+                       chunk: int = 64) -> torch.Tensor:
+    """C Bᵀ of every chunk, once per (batch, group): b, c (B, T, G, N) ->
+    float32 (B, G, ceil(T / chunk), chunk, chunk), entry [i, j] =
+    C[t0 + i] . B[t0 + j]; rows and columns at or past T are zero."""
+    return _chunks(c, chunk) @ _chunks(b, chunk).transpose(-1, -2)
+
+
 def ssd_scan_plain_call(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                         c: torch.Tensor, *, chunk: int = 64,
                         state0: torch.Tensor | None = None,
@@ -60,6 +81,7 @@ def ssd_scan_plain_call(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if h % g:
         raise ValueError(f"H={h} not a multiple of G={g}")
     rep = h // g
+    cb = ssd_chunk_cb_plain(b, c, chunk=chunk)    # (B, G, n_chunks, Q, Q)
     xf = _heads_first(x)
     af = a.float().permute(0, 2, 1).reshape(bsz * h, t)
     bf = _heads_first(b.repeat_interleave(rep, dim=2))
@@ -76,14 +98,16 @@ def ssd_scan_plain_call(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     rows = torch.arange(chunk, device=x.device)
     below = rows[:, None] >= rows[None, :]
     ys = []
-    for start in range(0, t + pad, chunk):
+    for ic, start in enumerate(range(0, t + pad, chunk)):
         sl = slice(start, start + chunk)
-        xb, ab, bb, cb = xf[:, sl], af[:, sl], bf[:, sl], cf[:, sl]
+        xb, ab, bb, cc = xf[:, sl], af[:, sl], bf[:, sl], cf[:, sl]
         a_cum = torch.cumsum(ab, dim=1)                       # A[i]
         seg = a_cum[:, :, None] - a_cum[:, None, :]           # A[i] - A[j]
         l_mat = torch.exp(seg.masked_fill(~below, float("-inf")))
-        scores = (cb @ bb.transpose(1, 2)) * l_mat
-        y = scores @ xb + torch.exp(a_cum)[..., None] * (cb @ s)
+        scores = (cb[:, :, ic, None] * l_mat.reshape(bsz, g, rep, chunk,
+                                                       chunk)
+                  ).reshape(bsz * h, chunk, chunk)
+        y = scores @ xb + torch.exp(a_cum)[..., None] * (cc @ s)
         a_tot = a_cum[:, -1:]
         w = torch.exp(a_tot - a_cum)[..., None] * bb          # (BH, Q, N)
         s = torch.exp(a_tot)[..., None] * s + w.transpose(1, 2) @ xb

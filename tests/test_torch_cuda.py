@@ -21,7 +21,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_plain_call
 from repro_torch.kernels.fused_span import kernel
 from repro_torch.kernels.fused_span.ops import span_plain_call
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain_call
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_cb_plain,
+                                              ssd_scan_plain_call)
 from repro_torch.launch.serve import generate
 from repro_torch.models import cnn
 from repro_torch.models.api import build_model, make_batch
@@ -288,6 +289,41 @@ def test_ssd_kernel_matches_plain_f32(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=[str(c) for c in SSD_CASES])
+def test_ssd_chunk_cb_kernel_matches_plain(cuda, case):
+    """The scan's first kernel on its own: every chunk's C Bᵀ, once per
+    (batch, group), against ``ssd_chunk_cb_plain`` at the kernel's chunk,
+    zero rows and columns past a ragged T included."""
+    _, _, b, c = ssd_inputs(case, cuda)
+    before = ssd_kernel.cb_launches
+    got = ssd_kernel.ssd_chunk_cb_cuda_call(b, c)
+    assert ssd_kernel.cb_launches == before + 1
+    want = ssd_chunk_cb_plain(b, c, chunk=ssd_kernel.CHUNK)
+    assert got.shape == want.shape == (case[0], case[3],
+                                       -(-case[1] // ssd_kernel.CHUNK),
+                                       ssd_kernel.CHUNK, ssd_kernel.CHUNK)
+    close_scaled(got, want, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(6, 0), (16, 1)])
+def test_ssd_kernel_stages_unaligned_fp32_rows(cuda, n, offset):
+    """fp32 rows that 16-byte copies cannot take (N not a multiple of 4, or
+    B, C and x starting one element into their storage) go through
+    registers, with the same results within the fp32 band."""
+    case = (2, 100, 4, 2, 16, n, 32)
+    x, a, b, c = ssd_inputs(case, cuda, seed=7)
+    if offset:
+        x, b, c = (torch.cat([v.new_zeros(v.shape[:-1] + (offset,)), v], -1)
+                   [..., offset:] for v in (x, b, c))
+    got, _ = ssd_kernel.ssd_scan_cuda_call(x, a, b, c)
+    want, _ = ssd_scan_plain_call(x, a, b, c, chunk=32)
+    close_scaled(got, want, 2e-5)
+    close_scaled(ssd_kernel.ssd_chunk_cb_cuda_call(b, c),
+                 ssd_chunk_cb_plain(b, c, chunk=ssd_kernel.CHUNK), 2e-5)
+
+
+@pytest.mark.cuda
 def test_ssd_kernel_matches_plain_bf16(cuda):
     """The reference's bf16 case: y in bf16, math in fp32, within 5e-2."""
     case = (1, 128, 4, 1, 16, 16, 32)
@@ -363,3 +399,23 @@ def test_ssd_kernel_empty_sequence_launches_nothing(cuda):
     assert ssd_kernel.launches == before
     assert y.shape == (2, 0, 4, 8)
     assert torch.equal(state, s0) and not bool(zeros.any())
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_two_ctas_per_sm_at_full_width(cuda):
+    """Mamba2-1.3B's prefill shape, x (4, 1024, 64, 64) against b/c
+    (4, 1024, 1, 128): the scan launches one CTA per (batch, head, P tile),
+    with the shared memory of ``smem_bytes``, and the device holds at least
+    two of them on an SM, so all 256 are resident at once."""
+    case = (4, 1024, 64, 1, 64, 128, 256)
+    x, a, b, c = ssd_inputs(case, cuda)
+    s0 = torch.zeros((4, 64, 128, 64), device=cuda)
+    y, state = ssd_kernel.ssd_scan_cuda_call(x, a, b, c, state0=s0,
+                                             return_state=True)
+    torch.cuda.synchronize()
+    shape = ssd_kernel.last_launch
+    assert shape["ctas"] == 4 * 64 and shape["threads"] == 256
+    assert shape["smem"] == ssd_kernel.smem_bytes(128) <= 115_712
+    assert shape["ctas_per_sm"] >= 2
+    assert shape["cb_ctas"] == 4 * 1 * 16
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())

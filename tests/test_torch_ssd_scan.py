@@ -11,7 +11,9 @@ from repro.kernels.ssd_scan.ref import ssd_ref as j_ssd_ref
 from repro.models import mamba as j_mamba
 from repro_torch.kernels.ssd_scan import ops
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda_call
-from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_scan_plain_call
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_cb_plain, ssd_ref,
+                                              ssd_scan_plain_call)
 from repro_torch.models import mamba
 
 CASES = [
@@ -193,3 +195,37 @@ def test_cuda_route_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="no SSD-scan route"):
         ops.ssd_scan(x.to("meta"), a.to("meta"), b.to("meta"),
                      b.to("meta"))
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("t_len,chunk", [(100, 32), (64, 64), (37, 16)])
+def test_chunk_cb_plain_matches_numpy(g, t_len, chunk):
+    """The plain version of the scan's first kernel: every chunk's
+    C_chunk @ B_chunkᵀ once per (batch, group), zero rows and columns
+    past a ragged T, against numpy on the same inputs."""
+    x, a, b, c = make((2, t_len, 4, g, 8, 16, chunk), seed=11)
+    got = ssd_chunk_cb_plain(t(b), t(c), chunk=chunk).numpy()
+    n_chunks = -(-t_len // chunk)
+    assert got.shape == (2, g, n_chunks, chunk, chunk)
+    pad = n_chunks * chunk - t_len
+    bp, cp = (np.pad(v, ((0, 0), (0, pad), (0, 0), (0, 0))) for v in (b, c))
+    for ic in range(n_chunks):
+        sl = slice(ic * chunk, (ic + 1) * chunk)
+        want = np.einsum("bign,bjgn->bgij", cp[:, sl], bp[:, sl])
+        np.testing.assert_allclose(got[:, :, ic], want, rtol=1e-5,
+                                   atol=1e-5)
+    tail = t_len - (n_chunks - 1) * chunk
+    assert not got[:, :, -1, tail:].any() and not got[:, :, -1, :, tail:].any()
+
+
+@pytest.mark.parametrize("n", [4, 16, 128])
+def test_scan_smem_fits_two_ctas_per_sm(n):
+    """The scan kernel's shared memory (the Python twin of the CUDA
+    source's ``smem_bytes``) lets two CTAs share an H100 SM at every state
+    size up to Mamba2-1.3B's 128, and grows with N: at most half of an
+    SM's 233,472 bytes less the 1,024 reserved per block."""
+    assert ssd_kernel.smem_bytes(n) <= 233_472 // 2 - 1_024 == 115_712
+    assert ssd_kernel.smem_bytes(n) < ssd_kernel.smem_bytes(n + 4)
+    if n == ssd_kernel.MAX_STATE:  # B/C 33,792 + x 16,384 + S 32,768 +
+        # score tile 17,408 + decays 768
+        assert ssd_kernel.smem_bytes(n) == 101_120
