@@ -38,8 +38,10 @@ Then the LM serving path, Llama-3.2-1B at its full published width
 fp32, random weights from ``--seed``):
 
 5. Flash kernel vs plain, on the card: the reference's test grid (GQA,
-   ragged, cross lengths, decode rows, D = 16..128) and one Sq > Skv causal
-   case in fp32 (rtol = atol = 2e-5), two bf16 cases (5e-2), and the
+   ragged, cross lengths, decode rows, D = 16..128), one Sq > Skv causal
+   case, cases that wrap the kernel's two-stage K/V ring several times and
+   end on a ragged tile, and one Sq that is not a multiple of a warp's 16
+   rows, in fp32 (rtol = atol = 2e-5); two bf16 cases (5e-2); and the
    slice's full-width shapes, q (4, 32, 1024, 64) against k/v
    (4, 8, 1024, 64) and a ragged (1, 32, 200, 64) prompt, held to
    max|kernel - plain| <= 1e-3 * max|plain|.
@@ -50,11 +52,18 @@ fp32, random weights from ``--seed``):
    request's prefill logits against the ``attn_impl="chunked"`` prefill
    within 1e-3 * max|chunked|.
 7. Times on the first request's shape: the kernel, its plain version and
-   ``scaled_dot_product_attention`` (CUDA events, median of 5 after a
-   warm-up) beside the kernel's bound; the whole prefill and one decode
-   step; peak device memory. Then ``torch.profiler`` records one more
-   prefill and one decode step: the device's busy time against the host
-   clock, and the kernels that take the most device time.
+   ``scaled_dot_product_attention`` (CUDA events around one call, median
+   of 5 after a warm-up, as for every kernel) beside the kernel's bound at
+   the rate of the units it runs on (3xTF32 products on the tensor cores)
+   and, for comparison with earlier rows, the fp32 CUDA-core bound; beside
+   them, the mean of 16 kernel calls back to back, as a prefill's 16
+   layers call it; the launch shape (CTAs, threads, dynamic shared
+   memory, CTAs resident per SM, at least 2 at d = 64 fp32, 16- or 4-byte
+   copies) and the ptxas registers and spills of the d = 64 fp32
+   instantiation; the whole prefill and one decode step; peak device
+   memory. Then ``torch.profiler`` records one more prefill and one
+   decode step: the device's busy time against the host clock, and the
+   kernels that take the most device time.
 
 Then the Mamba2 serving path, Mamba2-1.3B at its full published width
 (48 layers x d_model 2048, d_inner 4096, 64 SSD heads of 64, d_state 128,
@@ -112,6 +121,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 FP32_TFLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
+TF32_TFLOPS = 495e12    # H100 SXM TF32 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
 C, P = "conv", "pool"
 SMALL_CASES = [
@@ -150,6 +160,11 @@ FLASH_CASES = [
     (2, 4, 4, 80, 80, 64, True),
     (1, 16, 2, 64, 64, 128, True),
     (1, 4, 2, 48, 32, 16, True),
+    # the two-stage K/V ring wrapped several times, ending on a ragged
+    # tile; an Sq that is not a multiple of a warp's 16 rows
+    (1, 8, 2, 300, 300, 64, True),
+    (1, 4, 1, 130, 257, 128, False),
+    (2, 4, 2, 37, 37, 32, True),
 ]
 FLASH_BF16_CASES = [(1, 4, 2, 64, 64, 64, True), (1, 2, 1, 1, 96, 32, False)]
 # Llama-3.2-1B's attention at the slice's prefill shapes
@@ -227,19 +242,26 @@ def span_cost(net, a, b, batch, spill, src_keys, itemsize=4):
 
 
 def flash_cost(b, hq, hkv, sq, sk, d, causal, itemsize=4):
-    """(FLOP, bytes, bound ms, bound_by) of one flash-attention call. FLOP
-    count 4 * d per (query, key) pair the mask lets through (2 * d for
-    q . k, 2 * d for p * v); bytes count q and o once and k and v once per
-    kv head."""
+    """(FLOP, bytes, bound ms, bound_by, fp32 CUDA-core bound ms) of one
+    flash-attention call. FLOP count 4 * d per (query, key) pair the mask
+    lets through (2 * d for q . k, 2 * d for p * v); bytes count q and o
+    once and k and v once per kv head. The bound is at the rate of the
+    units the kernel runs its products on: the TF32 tensor cores, with
+    three products per multiply-add in fp32 (3xTF32: big x big, big x
+    small, small x big) and one in bf16 or fp16 (one TF32 pass). The last
+    value is the same FLOP on the fp32 CUDA cores (67 TFLOP/s, the bound
+    of the kernel before it used the tensor cores), for comparison."""
     offset = max(sk - sq, 0)
     pairs = (sum(min(r + offset + 1, sk) for r in range(sq)) if causal
              else sq * sk)
     flop = 4 * d * pairs * b * hq
     nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * itemsize
-    t_ops = flop / FP32_TFLOPS * 1e3
+    products = 3 if itemsize == 4 else 1
+    t_ops = products * flop / TF32_TFLOPS * 1e3
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     return flop, nbytes, max(t_ops, t_mem), \
-        "operations" if t_ops >= t_mem else "bytes"
+        "operations" if t_ops >= t_mem else "bytes", \
+        max(flop / FP32_TFLOPS * 1e3, t_mem)
 
 
 def ssd_cost(bsz, t, h, g, p, n, state_in, itemsize=4):
@@ -319,10 +341,11 @@ def trace_breakdown(torch, name, fn, top=8):
               f"x{e.count:<5d} {e.key[:90]}")
 
 
-def lm_serving(torch, seed, compare) -> dict:
+def lm_serving(torch, seed, compare, flash_log) -> dict:
     """Phases 5-7: the flash kernel against its plain version, Llama-3.2-1B
-    served at full width through ``generate``, and times. Returns the
-    kernel's record for the ``kernels`` line."""
+    served at full width through ``generate``, and times. ``flash_log`` is
+    the kernel's nvcc log. Returns the kernel's record for the ``kernels``
+    line."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention.ref import (
@@ -432,8 +455,13 @@ def lm_serving(torch, seed, compare) -> dict:
     # ---- 7. times on the first request's shape ---------------------------
     case = (b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.d_head, True)
     q, k, v = qkv(*case[:-1])
-    k_ms = time_ms(torch, lambda: fkernel.flash_attention_cuda_call(
-        q, k, v, causal=True))
+
+    def flash():
+        return fkernel.flash_attention_cuda_call(q, k, v, causal=True)
+
+    k_ms = time_ms(torch, flash)
+    k16_ms = time_ms(torch, flash, calls=16)
+    shape_k = dict(fkernel.last_launch)
     p_ms = time_ms(torch, lambda: flash_attention_plain_call(
         q, k, v, causal=True))
 
@@ -444,7 +472,7 @@ def lm_serving(torch, seed, compare) -> dict:
     compare("scaled_dot_product_attention vs plain", sdpa(),
             flash_attention_plain_call(q, k, v, causal=True), rel=1e-3)
     l_ms = time_ms(torch, sdpa)
-    flop, nbytes, bound, bound_by = flash_cost(*case)
+    flop, nbytes, bound, bound_by, fp32_bound = flash_cost(*case)
     torch.cuda.reset_peak_memory_stats()
     prefill_ms = time_ms(torch, lambda: api.prefill(params, prompt, s + g))
     _, caches = api.prefill(params, prompt, s + g)
@@ -453,10 +481,21 @@ def lm_serving(torch, seed, compare) -> dict:
                                                        s))
     n = cfg.n_layers
     print(f"time flash attention {case[:-1]} causal fp32: kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, scaled_dot_product_attention "
-          f"{l_ms:.4f} ms; {flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB, "
-          f"bound {bound:.4f} ms ({bound_by}), kernel at "
-          f"{bound / k_ms * 100:.2f}% of bound")
+          f"{k_ms:.4f} ms (one call; mean of 16 calls back to back, as in "
+          f"a prefill: {k16_ms:.4f} ms), plain {p_ms:.4f} ms, "
+          f"scaled_dot_product_attention {l_ms:.4f} ms; "
+          f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB, bound "
+          f"{bound:.4f} ms ({bound_by}, 3xTF32 at 495 TFLOP/s), kernel at "
+          f"{bound / k_ms * 100:.2f}% of bound; fp32 CUDA-core bound "
+          f"{fp32_bound:.4f} ms, kernel at {fp32_bound / k_ms * 100:.2f}%")
+    if shape_k["ctas_per_sm"] < 2:
+        raise AssertionError(f"flash kernel holds {shape_k['ctas_per_sm']} "
+                             f"CTA per SM at d = {cfg.d_head} fp32")
+    print(f"  launch flash attention: {shape_k['ctas']} CTAs x "
+          f"{shape_k['threads']} threads, {shape_k['smem']} bytes of dynamic "
+          f"shared memory, {shape_k['ctas_per_sm']} CTAs resident per SM, "
+          f"K/V by {16 if shape_k['copies16'] else 4}-byte cp.async; ptxas "
+          f"fp32 at d = 64: {fp32_ptxas(flash_log, 'flash_kernelIfLi64E')}")
     print(f"time {LM_PATH} request 1 (batch {b}, prompt {s}): prefill "
           f"{prefill_ms:.3f} ms (CUDA events, median of 5), of which "
           f"{n} kernel calls {n * k_ms:.3f} ms = "
@@ -1006,7 +1045,8 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")
 
-    flash_rec = lm_serving(torch, args.seed, compare)
+    flash_rec = lm_serving(torch, args.seed, compare,
+                           libs["flash_attention"].with_suffix(".log"))
     gc.collect()  # the Llama path's tensors go before Mamba's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

@@ -8,12 +8,21 @@ head of each query head by index arithmetic, and masks ragged tails
 itself. So a ``(B, S, H, D)`` activation transposed to ``(B, H, S, D)``
 goes in without a copy, and the output is allocated with q's strides.
 
-The kernel launches on the current stream and does not synchronise;
-``launches`` counts its launches.
+K and V tiles go into shared memory by ``cp.async``: 16-byte copies where
+every k and v row starts 16-byte aligned, else 4-byte copies (the launcher
+decides from the pointers and strides; ``_rows_aligned`` is its check). A
+bf16 or fp16 k or v whose rows are not even 4-byte aligned is copied to a
+fresh tensor first. The kernel launches on the current stream and does not
+synchronise; ``launches`` counts its launches, and ``last_launch`` holds the
+last launch's shape, with the CTAs the device holds per SM asked once per
+(dtype, head dim, device). :func:`smem_bytes` is the pure-Python twin of
+the kernel's shared-memory size, so its budget (four CTAs per H100 SM at
+d = 64 fp32) is checked on the CPU too.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -22,9 +31,25 @@ from .. import _build
 
 # kernel launches since import (or since the caller last reset it)
 launches = 0
+# the shape of the last launch: CTAs, threads, bytes of dynamic shared
+# memory, how many CTAs one SM holds at once, and whether K and V came by
+# 16-byte copies
+last_launch: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 32, 64, 128)
+BLOCK_Q = 64    # query rows per CTA, 16 per warp (kBQ in the source)
+BLOCK_K = 32    # kv rows per tile (kBK)
+THREADS = 128   # threads per CTA (kThreads)
+STAGES = 2      # K/V tiles in flight (kStages)
+
+
+def smem_bytes(d: int, itemsize: int) -> int:
+    """Dynamic shared memory of one CTA at head dim ``d`` for elements of
+    ``itemsize`` bytes: the fp32 q block (rows padded to d + 4), then
+    ``STAGES`` K and V tiles whose rows are padded by 16 bytes. The twin
+    of ``smem_bytes`` in ``csrc/flash_attention.cu``."""
+    return 4 * BLOCK_Q * (d + 4) + STAGES * 2 * BLOCK_K * (d * itemsize + 16)
 
 
 def _launcher():
@@ -39,6 +64,39 @@ def _launcher():
 
 def _head_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _rows_aligned(t: torch.Tensor, nbytes: int) -> bool:
+    """Whether every (B, H, S, D) row of ``t`` starts on a multiple of
+    ``nbytes``: its pointer and each stride over more than one entry. The
+    launcher's check (``rows_aligned`` in the source) for k and v."""
+    return t.data_ptr() % nbytes == 0 and all(
+        size < 2 or stride * t.element_size() % nbytes == 0
+        for size, stride in zip(t.shape[:3], t.stride()[:3]))
+
+
+@functools.cache
+def _occupancy(dtype: int, d: int, device: torch.device) -> tuple[int, int]:
+    """(dynamic shared memory, CTAs one SM holds at once) of the kernel's
+    instantiation for ``dtype`` and head dim ``d``, from the device; asked
+    once per (dtype, d, device)."""
+    fn = _build.library("flash_attention").occam_flash_attention_occupancy
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        fn.restype = i
+    smem, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(dtype, d, ctypes.byref(smem), ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"flash-attention occupancy query failed: CUDA "
+                           f"error {rc}")
+    itemsize = 4 if dtype == 0 else 2
+    if smem.value != smem_bytes(d, itemsize):
+        raise RuntimeError(f"flash-attention shared memory {smem.value} B "
+                           f"at d={d} differs from smem_bytes "
+                           f"{smem_bytes(d, itemsize)} B")
+    return smem.value, per_sm.value
 
 
 def flash_attention_cuda_call(q: torch.Tensor, k: torch.Tensor,
@@ -89,12 +147,18 @@ def flash_attention_cuda_call(q: torch.Tensor, k: torch.Tensor,
     if not 0 <= sk_valid <= sk:
         raise ValueError(f"seq_k_valid={sk_valid} outside [0, {sk}]")
     q, k, v = (_head_contiguous(t) for t in (q, k, v))
+    if q.element_size() == 2:
+        # 4-byte copies need 4-byte rows: a 16-bit k or v off by one
+        # element goes to a fresh (aligned) tensor
+        k, v = (t if _rows_aligned(t, 4) else t.clone(
+            memory_format=torch.contiguous_format) for t in (k, v))
     o = torch.empty_like(q)  # q's strides when q is dense, else contiguous
     if o.numel() == 0:
         return o
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (q, k, v, o) for s in t.stride()[:3]])
     launch = _launcher()
+    smem, per_sm = _occupancy(_DTYPE_CODES[q.dtype], d, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -105,4 +169,8 @@ def flash_attention_cuda_call(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
+    last_launch.clear()
+    last_launch.update(ctas=b * hq * -(-sq // BLOCK_Q), threads=THREADS,
+                       smem=smem, ctas_per_sm=per_sm,
+                       copies16=_rows_aligned(k, 16) and _rows_aligned(v, 16))
     return o

@@ -164,6 +164,12 @@ FLASH_CASES = [
     (2, 4, 4, 80, 80, 64, True),
     (1, 16, 2, 64, 64, 128, True),
     (1, 4, 2, 48, 32, 16, True),
+    # the kernel's two-stage K/V ring wrapped several times, ending on a
+    # ragged tile (d = 64 and d = 128); an Sq that is not a multiple of a
+    # warp's 16 rows
+    (1, 8, 2, 300, 300, 64, True),
+    (1, 4, 1, 130, 257, 128, False),
+    (2, 4, 2, 37, 37, 32, True),
 ]
 
 
@@ -216,6 +222,41 @@ def test_flash_kernel_reads_strided_views_and_valid_lengths(cuda, causal):
     assert got.stride() == q.stride()
     want = flash_attention_plain_call(q, k, v, **kw)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_copies_unaligned_rows(cuda, dtype):
+    """k and v starting one element into their storage: fp32 rows take the
+    kernel's 4-byte copies, 16-bit rows (not even 4-byte aligned) go to an
+    aligned copy first, which takes 16-byte copies; the same results
+    within each dtype's band."""
+    case = (1, 4, 2, 100, 100, 64, True)
+    q, k, v = flash_inputs(case, cuda, dtype, seed=5)
+    k1, v1 = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+              for t in (k, v))
+    assert k1.data_ptr() % 16 != 0
+    got = flash_kernel.flash_attention_cuda_call(q, k1, v1, causal=True)
+    assert flash_kernel.last_launch["copies16"] == (dtype != torch.float32)
+    want = flash_attention_plain_call(q, k, v, causal=True)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_four_ctas_per_sm_at_full_width(cuda):
+    """Llama-3.2-1B's prefill shape, q (4, 32, 1024, 64) against k/v
+    (4, 8, 1024, 64), fp32: one CTA per (batch, head, 64 query rows), the
+    shared memory of ``smem_bytes``, 16-byte copies, and the four CTAs on
+    an SM that the kernel's launch bounds ask for."""
+    q, k, v = flash_inputs((4, 32, 8, 1024, 1024, 64, True), cuda)
+    o = flash_kernel.flash_attention_cuda_call(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    shape = flash_kernel.last_launch
+    assert shape["ctas"] == 4 * 32 * 16 and shape["threads"] == 128
+    assert shape["smem"] == flash_kernel.smem_bytes(64, 4)
+    assert shape["ctas_per_sm"] >= 4 and shape["copies16"]
+    assert bool(torch.isfinite(o).all())
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """The port's flash attention on CPU tensors (its plain version) against
 the JAX package's flash attention (Pallas kernel in interpret mode) and
-oracle, on the same numpy-made inputs."""
+oracle, on the same numpy-made inputs; and, with no card, the numbers
+behind the CUDA kernel's design: its 3xTF32 products and its
+shared-memory budget."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +12,7 @@ import torch
 from repro.kernels.flash_attention import kernel as j_kernel
 from repro.kernels.flash_attention.ops import attention_ref as j_attention_ref
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro_torch.kernels.flash_attention import kernel as t_kernel
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (
     attention_ref, flash_attention_plain_call)
@@ -153,3 +156,78 @@ def test_cuda_route_rejects_cpu_tensors():
         flash_attention_cuda_call(x, x, x)
     with pytest.raises(ValueError, match="no flash-attention route"):
         ops.flash_attention(x.to("meta"), x.to("meta"), x.to("meta"))
+
+
+def tf32(x: np.ndarray) -> np.ndarray:
+    """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped 13 bits to
+    the magnitude's bits, then clear them."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_truncated(x: np.ndarray) -> np.ndarray:
+    """The top 19 bits of an fp32, which a TF32 tensor core reads of an
+    operand that is not already TF32 (the kernel's small parts)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_scores(q: np.ndarray, k: np.ndarray, passes: int) -> np.ndarray:
+    """q kᵀ as the kernel's tensor cores form it, sums in float64: one pass
+    multiplies the TF32-rounded operands; three add big x small and small
+    x big, with small = x - big read to 19 bits."""
+    qb, kb = tf32(q), tf32(k)
+    s = qb.astype(np.float64) @ kb.T.astype(np.float64)
+    if passes == 3:
+        qs, ks = tf32_truncated(q - qb), tf32_truncated(k - kb)
+        s += qb.astype(np.float64) @ ks.T.astype(np.float64)
+        s += qs.astype(np.float64) @ kb.T.astype(np.float64)
+    return s
+
+
+def test_tf32_rounding_helper_matches_cvt_rna():
+    """Ties go away from zero; below half of the dropped bits rounds
+    down; the result keeps 10 mantissa bits."""
+    one = np.float32(1.0)
+    tie = np.float32(1.0 + 2.0 ** -11)   # exactly half a TF32 ulp above 1
+    assert tf32(tie) == np.float32(1.0 + 2.0 ** -10)
+    assert tf32(-tie) == np.float32(-(1.0 + 2.0 ** -10))
+    assert tf32(np.float32(1.0 + 2.0 ** -12)) == one
+    x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    assert not np.any(tf32(x).view(np.uint32) & np.uint32(0x1FFF))
+    np.testing.assert_array_less(np.abs(tf32(x) - x), np.abs(x) * 2.0 ** -11
+                                 + 1e-30)
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)],
+                         ids=["3xTF32", "one TF32 pass"])
+def test_tf32_scores_against_the_fp32_band(passes, within):
+    """Scores of Llama-3.2-1B's head dim (64), q pre-scaled by 1/8 as the
+    kernel does, on numpy-made randn rows: the three-term split product
+    stays within the kernel's fp32 band (rtol = atol = 2e-5) of the fp32
+    product, and a single TF32 pass does not, which is why fp32 inputs
+    take three products and no TF32 mode serves them."""
+    rng = np.random.default_rng(17)
+    q = (rng.standard_normal((256, 64), np.float32) * np.float32(0.125))
+    k = rng.standard_normal((256, 64), np.float32)
+    want = q.astype(np.float64) @ k.T.astype(np.float64)
+    fp32 = (q @ k.T).astype(np.float64)  # the fp32 product itself
+    np.testing.assert_allclose(fp32, want, rtol=2e-5, atol=2e-5)
+    got = tf32_scores(q, k, passes)
+    assert np.allclose(got, fp32, rtol=2e-5, atol=2e-5) == within
+    if within:
+        assert np.abs(got - want).max() < 1e-5
+
+
+def test_kernel_shared_memory_fits_four_ctas_per_sm():
+    """The kernel's shared memory (``smem_bytes``, the twin of the
+    source's): every instantiation fits a block's 227 KB, and at d = 64
+    fp32 four CTAs fit an H100 SM (228 KB, 1 KB reserved per CTA), as
+    its launch bounds ask."""
+    for d in t_kernel.HEAD_DIMS:
+        for itemsize in (4, 2):
+            assert t_kernel.smem_bytes(d, itemsize) <= 232_448
+    assert t_kernel.smem_bytes(64, 4) == 52_224
+    assert 4 * (t_kernel.smem_bytes(64, 4) + 1024) <= 233_472
