@@ -17,7 +17,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    and 2 in fp32 (rtol = atol = 1e-4) and one in bf16 (5e-2); then the five
    spans of ResNet-18 and AlexNet's span (0, 8) at full width, held to
    max|kernel - plain| <= 1e-3 * max|plain|: deep fp32 sums (fan-in up to
-   4,608) taken in another order.
+   4,608) taken in another order. The small fp32 cases run once more with
+   ``kernel.CLUSTER_SIZES`` pinned to 8 CTAs a cluster.
 3. Main path: ``plan(resnet18(), 3_145_728).place().compile()`` serving
    requests of 8, 1 and 5 images at 224x224 (He-scaled random weights from
    ``--seed``), every span on the kernel, outputs against the layer-by-
@@ -32,6 +33,26 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    memory, clusters resident at once, ptxas registers and spills of the
    fp32 instantiation); ResNet-18's spans at batch 8 must run on at
    least 128 CTAs. Whole-``run`` time at batch 8.
+4b. Dtype policies at full width: ResNet-18 planned at 3,145,728 elements
+   under ``dtype_policy="int8"`` (cuts [12, 15, 16, 17]) and ``"bf16"``
+   ([12, 16]: one span of 4 convs, 256 -> 512 channels), every span on
+   the kernel (its fp32 instantiation: the boundary maps are fake-
+   quantized in fp32 buffers); one ``Deployment.run`` at batch 8 each
+   (paths ``resnet18-int8`` and ``resnet18-bf16``, counted), traffic
+   byte-exact (551,936 and 652,288 bytes per image), every output element
+   within one step of the boundary dtype (the int8 scale; the bf16
+   spacing at its magnitude) plus 1e-3 * max|oracle| of
+   ``compile("oracle")`` of the same plan (cuDNN layer by layer, the same
+   casts at the same boundaries), each span's kernel against its plain
+   version on the policy's boundary maps (1e-3 * max|plain|), and the
+   spans' times as in phase 4.
+4c. Serving sessions: ``serve(params, round_batch=8)`` on the fp32 and the
+   int8 deployments (paths ``resnet18-session`` and
+   ``resnet18-int8-session``), 17 images submitted as 8, 1, 5 and 3: three
+   rounds replayed from one CUDA graph, results in submit order and equal
+   bit for bit to ``Deployment.run``, launches = spans x (1 warm-up + 3
+   replays), ``report().matches_prediction`` over 17 images; a replayed
+   round timed (CUDA events, median of 5) beside ``run`` at batch 8.
 
 Then the LM serving path, Llama-3.2-1B at its full published width
 (16 layers x d_model 2048, 32/8 heads of 64, d_ff 8192, vocab 128,256;
@@ -173,6 +194,13 @@ FLASH_FULL_WIDTH = [(4, 32, 8, 1024, 1024, 64, True),
 # (batch, prompt length, tokens to generate) of the three requests
 LM_REQUESTS = [(4, 1024, 32), (1, 200, 16), (4, 32, 16)]
 LM_PATH = "llama3.2-1b-serve"
+# ResNet-18's capacity (elements), and under each policy at that capacity
+# (policy, cuts, bytes moved per image) as the planner predicts them
+RES_CAPACITY = 3_145_728
+POLICY_CASES = [("int8", [12, 15, 16, 17], 551_936),
+                ("bf16", [12, 16], 652_288)]
+# a session's submits: 17 images, rounds of 8, 7 masked lanes in the last
+SESSION_SUBMITS = (8, 1, 5, 3)
 
 SSD_CASES = [
     # (B, T, H, G, P, N, chunk): the reference's SSD-scan test grid, slow
@@ -339,6 +367,215 @@ def trace_breakdown(torch, name, fn, top=8):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.self_device_time_total / 1e3 / busy_ms * 100:6.2f}% "
               f"x{e.count:<5d} {e.key[:90]}")
+
+
+def new_record() -> dict:
+    """A fused-span path's record: launches, kernel-vs-plain error and the
+    sums of its spans' times and bounds (t_ops / t_mem decide bound_by)."""
+    return dict(launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                bound_ms=0.0, library_ms=0.0, t_ops=0.0, t_mem=0.0)
+
+
+def quant_step(torch, policy, got, want):
+    """One quantization step of the policy's boundary dtype at each
+    element: the int8 scale, or the bfloat16 spacing at the larger of the
+    two magnitudes (2^-8 of the power of two at or below it)."""
+    if policy.boundary == "int8":
+        return torch.full_like(want, policy.scale)
+    mag = torch.maximum(got.abs(), want.abs())
+    return torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+
+
+def policy_paths(torch, occam, kernel, span_plain_call, compare, time_span,
+                 paths, resnet, res_params, xs8) -> dict:
+    """Phase 4b: ResNet-18 planned under the int8 and bf16 policies at full
+    width, batch 8: cuts and routes, one counted ``Deployment.run`` each
+    (paths ``resnet18-int8`` / ``resnet18-bf16``), byte-exact traffic, the
+    output against the oracle deployment of the same plan, each span's
+    kernel against its plain version on the policy's boundary maps, and
+    the spans' times. Returns the policy deployments."""
+    from repro_torch.kernels.fused_span.ops import crossing_source_keys
+    from repro_torch.occam import registry
+    from repro_torch.occam.quant import casting
+    from repro_torch.runtime import span_engine
+
+    oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
+    deps = {}
+    for policy, cuts, per_image_bytes in POLICY_CASES:
+        pol = occam.resolve_policy(policy)
+        plan = occam.plan(resnet, RES_CAPACITY, dtype_policy=policy)
+        routes = [r.route for r in plan.routes]
+        if plan.boundaries != cuts or routes != ["pallas"] * plan.n_spans:
+            raise AssertionError(f"resnet18 {policy}: cuts "
+                                 f"{plan.boundaries}, routes {routes}")
+        dep = deps[policy] = plan.place().compile()
+        rec = paths[f"resnet18-{policy}"] = new_record()
+        kernel.launches = 0
+        y = dep.run(res_params, xs8)
+        torch.cuda.synchronize()
+        rec["launches"] = kernel.launches
+        if kernel.launches != plan.n_spans:
+            raise AssertionError(f"resnet18 {policy}: {kernel.launches} "
+                                 f"launches")
+        rep = dep.report()
+        measured = rep.measured_bytes / rep.images
+        if not (rep.matches_prediction and rep.matches_prediction_bytes) \
+                or measured != per_image_bytes:
+            raise AssertionError(f"resnet18 {policy} traffic {rep}")
+        want = plan.place().compile("oracle").run(res_params, xs8)
+        if not bool(torch.isfinite(y).all()) or y.shape != want.shape:
+            raise AssertionError(f"resnet18 {policy} output")
+        diff = (y - want).abs()
+        scale = float(want.abs().max())
+        step = quant_step(torch, pol, y, want)
+        steps = diff / step
+        beyond = float((diff > step + 1e-3 * scale).float().mean())
+        print(f"resnet18 {policy}: cuts {plan.boundaries}, "
+              f"{plan.n_spans} launches at batch 8, output "
+              f"{tuple(y.shape)}; whole run against the oracle deployment: "
+              f"max|run-oracle| {float(diff.max()):.6e} (max|oracle| "
+              f"{scale:.6e}, 1e-3 x max|oracle| {1e-3 * scale:.6e}), "
+              f"largest gap {float(steps.max()):.2f} {pol.boundary} "
+              f"steps, elements that differ "
+              f"{float((diff > 0).float().mean()) * 100:.4f}%, more than "
+              f"one step + 1e-3 x max|oracle| "
+              f"{beyond * 100:.4f}%; "
+              f"measured {measured:.0f} bytes/image == predicted "
+              f"{rep.offchip_bytes:.0f}: matches_prediction and "
+              f"matches_prediction_bytes True")
+        # span by span on the oracle's own boundary maps: the kernel against
+        # its plain version before the cast (1e-3 x max|plain|), and the
+        # cast output against the oracle's within one step of the boundary
+        # dtype + 1e-3 x max|oracle| (the two sums round apart); then times
+        qparams = casting.quantize_params(res_params, pol)
+
+        def fq(t):
+            return casting.fake_quant(t, pol.boundary, pol.scale)
+
+        stored = {0: fq(xs8)}
+        for r in plan.routes:
+            a, b = r.start, r.end
+            spill = span_engine.span_spills(resnet, cuts, a, b)
+            kw = dict(srcs={s: stored[s]
+                            for s in crossing_source_keys(resnet, a, b)},
+                      spill=spill)
+            xs = stored[a]
+            got, got_sp = kernel.span_cuda_call(xs, qparams[a:b], resnet, a,
+                                                b, **kw)
+            plain, plain_sp = span_plain_call(xs, qparams[a:b], resnet, a,
+                                              b, **kw)
+            err, pscale = compare(f"resnet18 {policy} span ({a}, {b})", got,
+                                  plain, rel=1e-3)
+            for m in spill:
+                e, _ = compare(f"resnet18 {policy} span ({a}, {b}) spill "
+                               f"{m}", got_sp[m], plain_sp[m], rel=1e-3)
+                err = max(err, e)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            o_out, o_sp = oracle.run(qparams, resnet, a, b, stored, spill)
+            gap, differ = 0.0, 0.0
+            for name, k_map, o_map in [(b, got, o_out)] + [
+                    (m, got_sp[m], o_sp[m]) for m in spill]:
+                k_q, o_q = fq(k_map), fq(o_map)
+                d = (k_q - o_q).abs()
+                band = quant_step(torch, pol, k_q, o_q) \
+                    + 1e-3 * float(o_q.abs().max())
+                if bool((d > band).any()):
+                    raise AssertionError(
+                        f"resnet18 {policy} span ({a}, {b}) map {name}: "
+                        f"{int((d > band).sum())} elements past one "
+                        f"{pol.boundary} step + 1e-3 x max|oracle|")
+                gap = max(gap, float(d.max()))
+                differ = max(differ, float((d > 0).float().mean()))
+            print(f"resnet18 {policy} span ({a}, {b}): "
+                  f"{resnet.span_weight_elems(a, b)} weight elements, "
+                  f"max|kernel-plain| {err:.3e} (max|plain| {pscale:.3e}, "
+                  f"band 1e-3 x max|plain|); cast output against the "
+                  f"oracle's on the same input: max gap {gap:.6e}, "
+                  f"{differ * 100:.4f}% of elements differ, all within one "
+                  f"{pol.boundary} step + 1e-3 x max|oracle|; spill "
+                  f"{list(spill)}, srcs {sorted(kw['srcs'])}")
+            time_span(f"resnet18-{policy}", resnet, qparams, xs, a, b, kw,
+                      rec)
+            stored[b] = fq(o_out)
+            stored.update({m: fq(v) for m, v in o_sp.items()})
+        print(f"resnet18 {policy} spans at batch 8: kernel sum "
+              f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, cuDNN "
+              f"oracle {rec['library_ms']:.3f} ms, bound sum "
+              f"{rec['bound_ms']:.4f} ms")
+    return deps
+
+
+def sessions(torch, kernel, compare, paths, fp32_dep, int8_dep, res_params,
+             xs8, rng, run_ms) -> None:
+    """Phase 4c: ``Deployment.serve(params, round_batch=8)`` on the fp32
+    and the int8 ResNet-18 deployments (paths ``resnet18-session`` and
+    ``resnet18-int8-session``): 17 images submitted as 8, 1, 5 and 3, so 3
+    rounds, the last with 7 masked lanes. Results in submit order, equal
+    bit for bit to ``Deployment.run`` on the same images, one CUDA-graph
+    capture, the captured launches counted per replay, traffic matching
+    the prediction; then a replayed round timed beside ``run``."""
+    import numpy as np
+
+    xs17 = torch.from_numpy(rng.standard_normal(
+        (17,) + tuple(xs8.shape[1:]), np.float32)).to(xs8.device)
+    offs = np.cumsum((0,) + SESSION_SUBMITS)
+    reqs = [xs17[a:b] for a, b in zip(offs[:-1], offs[1:])]
+    for label, dep, base in (("fp32", fp32_dep, "resnet18"),
+                             ("int8", int8_dep, "resnet18-int8")):
+        path = f"{base}-session"
+        rec = paths[path] = new_record()
+        spans = dep.plan.n_spans
+        kernel.launches = 0
+        sess = dep.serve(res_params, round_batch=8)
+        tickets = [sess.submit(x) for x in reqs]
+        res = sess.results()
+        sess.sync()
+        rec["launches"] = kernel.launches
+        rounds = sess.serving_stats().rounds_served
+        # the warm-up call before the capture launches once; every replay
+        # adds the launches the capture recorded
+        if (sess.compile_count, rounds, sess._step.launches_per_replay,
+                kernel.launches) != (1, 3, spans, spans * (1 + rounds)):
+            raise AssertionError(
+                f"{path}: {sess.compile_count} captures, {rounds} rounds, "
+                f"{sess._step.launches_per_replay} launches a replay, "
+                f"{kernel.launches} launches")
+        if [t.uid for t, _ in res] != [t.uid for t in tickets] or \
+                [int(y.shape[0]) for _, y in res] != list(SESSION_SUBMITS):
+            raise AssertionError(f"{path}: results out of submit order")
+        for (t, y), x in zip(res, reqs):
+            if not torch.equal(y, dep.run(res_params, x)):
+                raise AssertionError(f"{path}: ticket {t.uid} differs from "
+                                     f"Deployment.run")
+        rep = sess.report()
+        if rep.images != 17 or not rep.matches_prediction or \
+                rep.matches_prediction_bytes is False:
+            raise AssertionError(f"{path} traffic {rep}")
+        run_ev_ms = time_ms(torch, lambda: dep.run(res_params, xs8))
+        round_ms = time_ms(torch, lambda: sess._step(sess.params, xs8))
+        timing = rep.timing
+        print(f"{path}: {rounds} rounds of 8 (7 masked lanes in the last), "
+              f"1 CUDA-graph capture, {sess._step.launches_per_replay} "
+              f"launches a replay, {rec['launches']} launches (warm-up + "
+              f"replays); results in "
+              f"submit order, each equal bit for bit to Deployment.run; "
+              f"report over {rep.images} images: matches_prediction True, "
+              f"measured {rep.measured_bytes / rep.images:.0f} bytes/image"
+              f" (matches_prediction_bytes {rep.matches_prediction_bytes})"
+              f"; tick timer {timing['tick_count']} ticks, mean "
+              f"{timing['tick_mean_s'] * 1e3:.3f} ms (host clock around "
+              f"each replay call)")
+        print(f"time {path}: a replayed round of 8 (copy in, replay, clone "
+              f"out) {round_ms:.3f} ms (CUDA events, median of 5), "
+              f"{8 / round_ms * 1e3:.2f} images/s; Deployment.run batch 8 "
+              f"{run_ev_ms:.3f} ms (CUDA events, median of 5; phase 4's "
+              f"host clock, fp32: {run_ms:.3f} ms)")
+        spans_rec = paths[base]
+        rec.update(max_abs_err=spans_rec["max_abs_err"], ms=round_ms,
+                   **{k: spans_rec[k] for k in ("plain_ms", "bound_ms",
+                                                "library_ms", "t_ops",
+                                                "t_mem")})
+        sess.close()
 
 
 def lm_serving(torch, seed, compare, flash_log) -> dict:
@@ -862,6 +1099,7 @@ def main() -> int:
                     residual_edges=edges)
     small += [(name, opt_net, a, b) for name, a, b in opt_spans]
     n_small, small_err = 0, 0.0
+    fp32_cases = []
     for name, net, a, b in small:
         b = net.n_layers if b is None else b
         params = convert.params_from_numpy(he_params(net, rng), dev)
@@ -871,6 +1109,7 @@ def main() -> int:
         spill = span_engine.span_spills(
             net, [c for c in (a, b) if 0 < c < net.n_layers], a, b)
         srcs = {s: maps[s] for s in crossing_source_keys(net, a, b)}
+        fp32_cases.append((name, net, a, b, params, maps, spill, srcs))
         for out_rows in (1, 2):
             got, got_sp = kernel.span_cuda_call(
                 maps[a], params[a:b], net, a, b, out_rows=out_rows,
@@ -896,6 +1135,33 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"kernel vs plain: {n_small} small cases within fp32 1e-4 "
           f"(bf16 5e-2); worst fp32 max|kernel-plain| {small_err:.3e}")
+    # the fp32 cases once more with the cluster pinned to 8 CTAs, the
+    # geometry the H100 otherwise never takes (it places 16)
+    kernel.CLUSTER_SIZES = (8,)
+    n8, err8 = 0, 0.0
+    for name, net, a, b, params, maps, spill, srcs in fp32_cases:
+        for out_rows in (1, 2):
+            got, got_sp = kernel.span_cuda_call(
+                maps[a], params[a:b], net, a, b, out_rows=out_rows,
+                srcs=srcs, spill=spill)
+            if kernel.last_launch["cluster"] != 8:
+                raise AssertionError(f"{name}: a cluster of "
+                                     f"{kernel.last_launch['cluster']}")
+            want, want_sp = span_plain_call(
+                maps[a], params[a:b], net, a, b, out_rows=out_rows,
+                srcs=srcs, spill=spill)
+            err, _ = compare(f"{name} t={out_rows} cluster 8", got, want,
+                             1e-4, 1e-4)
+            err8 = max(err8, err)
+            for m in spill:
+                err, _ = compare(f"{name} spill {m} cluster 8", got_sp[m],
+                                 want_sp[m], 1e-4, 1e-4)
+                err8 = max(err8, err)
+            n8 += 1
+    kernel.CLUSTER_SIZES = (16, 8)
+    torch.cuda.synchronize()
+    print(f"kernel vs plain at a pinned cluster of 8 CTAs: {n8} small fp32 "
+          f"cases within 1e-4; worst max|kernel-plain| {err8:.3e}")
 
     resnet, alexnet = zoo.resnet18(), zoo.alexnet()
     res_params_np = he_params(resnet, rng)
@@ -910,16 +1176,14 @@ def main() -> int:
     alex_maps = cnn.reference_forward(
         alex_params, convert.array_from_numpy(xs_alex, dev), alexnet,
         collect=True)
-    res_plan = occam.plan(resnet, 3_145_728)
+    res_plan = occam.plan(resnet, RES_CAPACITY)
     if res_plan.boundaries != [12, 15, 16, 17]:
         raise AssertionError(f"resnet18 cuts {res_plan.boundaries}")
     spans = [("resnet18", resnet, res_params, res_maps, r.start, r.end,
               res_plan.boundaries) for r in res_plan.routes]
     spans.append(("alexnet", alexnet, alex_params, alex_maps, 0, 8, []))
     # one record per main path: its own launches, errors and times
-    paths = {name: dict(launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                        bound_ms=0.0, library_ms=0.0, t_ops=0.0, t_mem=0.0)
-             for name in ("resnet18", "alexnet")}
+    paths = {name: new_record() for name in ("resnet18", "alexnet")}
     span_args = []
     for net_name, net, params, maps, a, b, cuts in spans:
         spill = span_engine.span_spills(net, cuts, a, b)
@@ -995,8 +1259,11 @@ def main() -> int:
     oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
     span_ptxas = fp32_ptxas(libs["fused_span"].with_suffix(".log"),
                             "fused_span_kernelIfE")
-    for net_name, net, params, maps, a, b, kw in span_args:
-        xs = maps[a]
+
+    def time_span(net_name, net, params, xs, a, b, kw, rec):
+        """Phase 4's times of one span launch, its plain version and the
+        cuDNN oracle (CUDA events, median of 5), its bound and launch
+        shape, added into the path's record ``rec``."""
         batch = xs.shape[0]
         stored = {a: xs, **kw["srcs"]}
         k_ms = time_ms(torch, lambda: kernel.span_cuda_call(
@@ -1008,7 +1275,7 @@ def main() -> int:
         macs, nbytes, bound, bound_by = span_cost(
             net, a, b, batch, kw["spill"], tuple(kw["srcs"]))
         shape = kernel.last_launch
-        if net_name == "resnet18" and batch == 8 and shape["ctas"] < 128:
+        if net.name == "resnet18" and batch == 8 and shape["ctas"] < 128:
             raise AssertionError(f"resnet18 span ({a}, {b}) at batch 8 "
                                  f"launched {shape['ctas']} CTAs")
         print(f"time {net_name} span ({a}, {b}) batch {batch}: kernel "
@@ -1021,13 +1288,15 @@ def main() -> int:
               f"{shape['threads']} threads per CTA, {shape['smem']} bytes of "
               f"dynamic shared memory, {shape['resident_clusters']} "
               f"clusters resident at once; ptxas fp32: {span_ptxas}")
-        rec = paths[net_name]
         rec["ms"] += k_ms
         rec["plain_ms"] += p_ms
         rec["library_ms"] += o_ms
         rec["bound_ms"] += bound
         rec["t_ops"] += 2 * macs / FP32_TFLOPS * 1e3
         rec["t_mem"] += nbytes / HBM_BYTES_PER_S * 1e3
+
+    for net_name, net, params, maps, a, b, kw in span_args:
+        time_span(net_name, net, params, maps[a], a, b, kw, paths[net_name])
     xs8 = convert.array_from_numpy(xs_res, dev)
     dep.run(res_params, xs8)
     torch.cuda.synchronize()
@@ -1045,6 +1314,11 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")
 
+    pol_deps = policy_paths(torch, occam, kernel, span_plain_call, compare,
+                            time_span, paths, resnet, res_params, xs8)
+    sessions(torch, kernel, compare, paths, dep, pol_deps["int8"],
+             res_params, xs8, rng, run_ms)
+
     flash_rec = lm_serving(torch, args.seed, compare,
                            libs["flash_attention"].with_suffix(".log"))
     gc.collect()  # the Llama path's tensors go before Mamba's
@@ -1054,7 +1328,9 @@ def main() -> int:
                             libs["ssd_scan"].with_suffix(".log"))
 
     # fused-span times: one batch-8 run of ResNet-18's five spans, one
-    # batch-4 run of AlexNet's span; launches: each path's run in phase 3
+    # batch-4 run of AlexNet's span, one batch-8 run of each policy plan's
+    # spans; a session's ms is one replayed round of 8 (its other times are
+    # its deployment's spans'); launches: each path's counted run
     print(json.dumps({"kernels": [{
         "name": "fused_span",
         "path": name,

@@ -17,12 +17,13 @@ params or inputs never rebuild a descriptor.
 Launch geometry (the plain functions :func:`row_tile` and
 :func:`span_geometry`, checked on the CPU by the tests). One
 thread-block cluster of 16 CTAs of 256 threads works on one image, or
-of 8 CTAs where the device cannot place 16: a launch-shape choice,
-recorded in ``last_launch``. A CTA uses at most 128 registers and half
-an SM's shared memory, so two share an SM and a batch of 8 clusters of
-16 is resident at once. Each CTA owns a fixed tile of every map's row,
-``tw`` columns by ``tc`` channels, picked per map so the cluster's tiles
-cover the row once with the least work on the busiest CTA. A conv row is
+of 8 CTAs where the device cannot place 16 or ``CLUSTER_SIZES`` pins 8:
+a launch-shape choice, recorded in ``last_launch``. A CTA uses at most
+128 registers and half an SM's shared memory, so two share an SM and a
+batch of 8 clusters of 16 is resident at once. Each CTA owns a fixed
+tile of every map's row, ``tw`` columns by ``tc`` channels, picked per
+map so the cluster's tiles cover the row once with the least work on the
+busiest CTA. A conv row is
 an implicit GEMM over K = ``k * k * C_in``, staged through shared memory
 in 2-4 chunks: as the CTA's input window, ``bk`` input channels a chunk,
 where C_in is a multiple of 4 and the window holds fewer values than
@@ -77,7 +78,9 @@ STATIC_SMEM = 8 * MAX_K + 4 * MAX_TAPS
 # K-chunks leave DESC_RESERVE of it to the descriptor's copy
 SMEM_BUDGET = 114_688
 DESC_RESERVE = 2_048
-CLUSTER_SIZES = (16, 8)  # the cluster sizes tried, largest first
+# the cluster sizes tried, largest first, read when a span's launch plan
+# is built: assign (8,) to pin clusters of 8 CTAs
+CLUSTER_SIZES = (16, 8)
 
 _plans: dict = {}
 _cluster_choice: dict = {}
@@ -299,19 +302,24 @@ def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
                device: torch.device):
     """(workspace elems per image, geometry, launch shared memory, resident
     clusters, device descriptor) of one span, built once per (span, spill,
-    tile height, dtype, device) and cached: a launch then does no schedule
-    or geometry work on the host.
+    tile height, dtype, device, cluster sizes) and cached: a launch then
+    does no schedule or geometry work on the host.
 
-    The geometry is the one for the largest cluster size the device can
-    place (16, else 8); RuntimeError when it can place neither, ValueError
-    when the span needs more shared memory than a CTA has."""
-    key = (net, a, b, spill, out_rows, dtype, device)
+    The geometry is the one for the largest size in ``CLUSTER_SIZES`` the
+    device can place (16, else 8); RuntimeError when it can place none,
+    ValueError when the span needs more shared memory than a CTA has or
+    ``CLUSTER_SIZES`` names a size other than 16 or 8."""
+    sizes = tuple(CLUSTER_SIZES)
+    if not sizes or any(c not in (16, 8) for c in sizes):
+        raise ValueError(f"CLUSTER_SIZES must list sizes among (16, 8), "
+                         f"got {sizes}")
+    key = (net, a, b, spill, out_rows, dtype, device, sizes)
     plan = _plans.get(key)
     if plan is not None:
         return plan
     schedule = closure.span_schedule(net, a, b, spill=spill,
                                      out_rows=out_rows)
-    for cluster in CLUSTER_SIZES:
+    for cluster in sizes:
         geom = span_geometry(net, a, b, cluster)
         words = _descriptor(net, a, b, schedule, spill, src_keys, cluster)
         smem = launch_smem(geom, words)
@@ -329,7 +337,7 @@ def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
                                   resident, desc)
             return plan
     raise RuntimeError(f"span ({a}, {b}): the device places no cluster of "
-                       f"{' or '.join(map(str, CLUSTER_SIZES))} CTAs with "
+                       f"{' or '.join(map(str, sizes))} CTAs with "
                        f"{smem} bytes of shared memory each")
 
 

@@ -8,12 +8,17 @@
     y = dep.run(params, xs)                       # numpy or tensors
     dep.report().matches_prediction               # model == machine
 
+    plan8 = occam.plan(net, capacity_elems, dtype_policy="int8")
+    with plan8.place().compile().serve(params, round_batch=8) as sess:
+        t = sess.submit(xs)                       # any number of images
+        (ticket, y), = sess.results()             # submit order
+
 Execution backends live in :mod:`repro_torch.occam.registry`; the span
 engine registers the kernel (route name ``pallas``), ``scan``,
 ``oracle`` and ``interpreted`` engines at import.
 """
 from . import quant, registry
-from .deploy import Deployment
+from .deploy import Deployment, ServingStats, Session, Ticket
 from .fleet import Fleet, load_fleet
 from .place import SINGLE, Placement
 from .plan import (PLAN_FORMAT_VERSION, Plan, ServingDefaults, load_plan,
@@ -30,5 +35,5 @@ __all__ = [
     "backend_names", "get_engine", "load_fleet", "load_plan", "plan",
     "plan_from_dict", "plan_from_json", "quant", "register_engine",
     "registered_engines", "registry", "resolve_policies", "resolve_policy",
-    "unregister_engine",
+    "ServingStats", "Session", "Ticket", "unregister_engine",
 ]

@@ -31,6 +31,31 @@ class Placement:
     kind: str          # SINGLE
     microbatch: int    # images per execution slot
 
+    @property
+    def ring_depth(self) -> int:
+        """Rounds resident in the serving ring — submit-to-result latency
+        in ticks (1 for the single-device placement)."""
+        return 1
+
+    def serve_geometry(self, round_batch: int | None = None
+                       ) -> tuple[int, int]:
+        """Size one serving round: ``(round_batch, microbatch)``.
+
+        Single-device rounds have width 1, so any positive
+        ``round_batch`` works and the microbatch is the whole round.
+        Default: the plan's recorded serving default, else the placement
+        microbatch.
+        """
+        if round_batch is None:
+            round_batch = self.plan.serving.round_batch
+        if round_batch is None:
+            round_batch = self.microbatch
+        round_batch = int(round_batch)
+        if round_batch < 1:
+            raise ValueError(f"round_batch must be positive (single-device "
+                             f"rounds have width 1), got {round_batch}")
+        return round_batch, round_batch
+
     def compile(self, backend: str = "auto", *,
                 device: str | torch.device | None = None) -> "Deployment":
         """Stage 3: lower onto engines -> :class:`~repro_torch.occam

@@ -8,10 +8,10 @@ produce a self-contained document (the net spec rides along) a serving
 host can ``load_plan`` and compile without re-running the planner.
 
 The document format is the reference package's, schema v5, so a plan
-written by either package loads in the other. This package does not yet
-execute dtype policies or calibrated cost models: ``plan()`` with a
-``dtype_policy`` and documents with a non-null ``quant`` or
-``calibration`` block raise ``NotImplementedError``.
+written by either package loads in the other. A plan may carry a dtype
+policy (the schema-v5 ``quant`` block). This package does not yet run
+calibrated cost models: documents with a non-null ``calibration`` block
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from .fleet import Fleet
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from .place import Placement
+    from .quant import DtypePolicy
 
 # v1: partition + routes + prediction. v2 adds the "serving" block
 # (session defaults: round_batch, ring_depth). v3 adds the "fleet" block
@@ -54,8 +55,6 @@ PLAN_KEYS_BY_VERSION: dict[int, frozenset[str]] = {
 _PREDICTED_FIELDS = ("scheme", "feature_elems", "filter_elems",
                      "compute_macs", "boundary_elems")
 
-_QUANT_SLICE = ("dtype policies run in the quantized-spans slice of the "
-                "port, which has not landed")
 _CALIBRATION_SLICE = ("calibrated plans run in the planning-frontier and "
                       "calibration slice of the port, which has not "
                       "landed")
@@ -104,6 +103,8 @@ class Plan:
     # output tile height t (rows per kernel step, Eqn. 6 amortization);
     # spans whose output map is shorter clamp per-span at execution
     out_rows: int = 1
+    # dtype policy planned under (v5); None is the implicit fp32 policy
+    quant: "DtypePolicy | None" = None
 
     # -- introspection ------------------------------------------------------
 
@@ -168,10 +169,10 @@ class Plan:
             "serving": self.serving.to_dict(),
             "fleet": self.fleet.to_dict() if self.fleet else None,
             "out_rows": self.out_rows,
-            # schema v4/v5 blocks: this package writes only uncalibrated,
-            # implicit-fp32 plans so far
+            # schema v4 block: this package writes only uncalibrated plans
             "calibration": None,
-            "quant": None,
+            "quant": (self.quant.to_dict()
+                      if self.quant is not None else None),
         }
 
     def to_json(self, indent: int | None = 2) -> str:
@@ -193,21 +194,25 @@ def plan(net: NetSpec, capacity_elems: int, *, batch: int = 1,
     (schema v3). ``out_rows`` is the output tile height t (output
     row-planes per kernel step — the paper's Table II TileDim); each span
     clamps it to its own output height at execution. ``dtype_policy``
-    other than ``None`` (the implicit fp32 policy) raises
-    ``NotImplementedError`` until the quantized-spans slice lands.
+    makes dtype a planning axis (schema v5): a ``occam.quant.DtypePolicy``
+    (or preset name like ``"int8"``) under which the DP charges boundary
+    *bytes* and footprints shrink by the narrower widths — a quantized
+    boundary can move the cut. ``None`` is the implicit fp32 policy.
     """
     if out_rows < 1:
         raise ValueError(f"out_rows must be >= 1, got {out_rows}")
     from .quant import resolve_policy
 
-    if resolve_policy(dtype_policy) is not None:
-        raise NotImplementedError(_QUANT_SLICE)
-    part = partition_cnn(net, capacity_elems, batch=batch)
-    routes = span_engine.plan_routes(net, part, out_rows=out_rows)
-    predicted = occam_traffic(net, capacity_elems, batch, part)
+    policy = resolve_policy(dtype_policy)
+    part = partition_cnn(net, capacity_elems, batch=batch, policy=policy)
+    routes = span_engine.plan_routes(
+        net, part, out_rows=out_rows,
+        dtype=policy.compute if policy is not None else None)
+    predicted = occam_traffic(net, capacity_elems, batch, part,
+                              policy=policy)
     serving = ServingDefaults(round_batch, part.n_spans)
     return Plan(net, capacity_elems, batch, part, routes, predicted,
-                serving, fleet, out_rows)
+                serving, fleet, out_rows, quant=policy)
 
 
 def plan_from_dict(d: dict) -> Plan:
@@ -224,12 +229,6 @@ def plan_from_dict(d: dict) -> Plan:
                 f"plan document carries unknown top-level key(s) "
                 f"{unknown}; schema version {version} defines "
                 f"{sorted(PLAN_KEYS_BY_VERSION[version])}")
-    if version < 5 and d.get("quant") is not None:
-        raise ValueError(
-            f"plan document stamped version {version} carries a 'quant' "
-            f"block; dtype policies require schema version 5")
-    if version >= 5 and d.get("quant"):
-        raise NotImplementedError(_QUANT_SLICE)
     if version >= 4 and d.get("calibration"):
         raise NotImplementedError(_CALIBRATION_SLICE)
     net = net_from_dict(d["net"])
@@ -248,9 +247,27 @@ def plan_from_dict(d: dict) -> Plan:
     # v1/v2 had no fleet block: the plan's capacity stands alone
     fleet = Fleet.from_dict(d["fleet"]) \
         if version >= 3 and d.get("fleet") else None
+    # v1-v4 documents are implicitly fp32; a non-null quant key on one is
+    # a mislabeled artifact, not a migration case: reject it
+    quant = None
+    if version >= 5 and d.get("quant"):
+        from .quant import DtypePolicy
+
+        quant = DtypePolicy.from_dict(d["quant"])
+    elif version < 5 and d.get("quant") is not None:
+        raise ValueError(
+            f"plan document stamped version {version} carries a 'quant' "
+            f"block; dtype policies require schema version 5")
+    if quant is not None:
+        # predicted serializes elem counts only; the byte widths are a
+        # pure function of the policy, so re-stamp them
+        predicted = dataclasses.replace(
+            predicted,
+            boundary_bytes_per_elem=quant.boundary_bytes,
+            filter_bytes_per_elem=quant.weight_bytes)
     return Plan(net, int(d["capacity_elems"]), int(d["batch"]), part,
                 routes, predicted, serving, fleet,
-                int(d.get("out_rows", 1)))
+                int(d.get("out_rows", 1)), quant)
 
 
 def plan_from_json(doc: str) -> Plan:

@@ -4,10 +4,10 @@
   named presets and the plan's schema-v5 ``quant`` block.
 - :mod:`~repro_torch.occam.quant.footprint` — byte-denominated span
   footprints.
-
-Executing a policy (the casting twins) is the quantized-spans slice of
-the port; until it lands, ``occam.plan`` rejects a ``dtype_policy``.
+- :mod:`~repro_torch.occam.quant.casting` — the quantize / dequantize /
+  fake-quant twins the span engine calls at span boundaries, on tensors.
 """
+from . import casting  # noqa: F401
 from .footprint import (  # noqa: F401
     effective_footprint_elems,
     report_widths,
@@ -30,6 +30,7 @@ __all__ = [
     "POLICIES",
     "QUANT_FORMAT_VERSION",
     "DtypePolicy",
+    "casting",
     "dtype_bytes",
     "effective_footprint_elems",
     "report_widths",

@@ -28,6 +28,7 @@ equal ``predicted_transfers`` x batch), whichever engine ran the span.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import torch
@@ -106,33 +107,56 @@ def execute_partition(params: list[dict], xs: torch.Tensor, net: NetSpec,
                       partition: PartitionResult | Sequence[int], *,
                       counter: cnn.TrafficCounter | None = None,
                       routes: tuple[SpanRoute, ...] | None = None,
-                      out_rows: int = 1) -> torch.Tensor:
+                      out_rows: int = 1, policy=None) -> torch.Tensor:
     """Execute ``net`` on ``xs`` ((B, H, W, C) or (H, W, C)) span by span.
 
     ``params`` and ``xs`` must already be on one device; each engine runs
     on that device. ``counter`` accumulates off-chip element transfers
     (x batch), matching ``cnn.predicted_transfers(net, boundaries) *
-    batch``. ``out_rows``: output tile height per step (Eqn. 6).
+    batch``; under a policy the byte twins scale by the boundary width.
+    ``out_rows``: output tile height per step (Eqn. 6).
+    ``policy``: an ``occam.quant.DtypePolicy`` — every map that crosses a
+    span boundary (the input, span outputs, spills, residual sources)
+    makes the round trip through the policy's boundary dtype before the
+    next span reads it, and the weights through the weight dtype. The
+    buffers stay fp32 (``fake_quant`` keeps its input's dtype), so span
+    bodies run the engines' fp32 path on quantized values;
+    ``policy.compute`` only chooses the routes.
     """
     squeeze = xs.ndim == 3
     if squeeze:
         xs = xs[None]
     batch = xs.shape[0]
+    if policy is not None and policy.is_default:
+        policy = None
+    if policy is None:
+        boundary = lambda t: t  # noqa: E731
+        bpe = 4.0
+    else:
+        from repro_torch.occam.quant import casting
+
+        params = casting.quantize_params(params, policy)
+        boundary = functools.partial(casting.fake_quant,
+                                     dtype=policy.boundary,
+                                     scale=policy.scale)
+        bpe = policy.boundary_bytes
     boundaries = _boundaries_of(partition, net)
-    routes = routes or plan_routes(net, partition, out_rows=out_rows,
-                                   dtype=dtype_name(xs.dtype))
-    stored: dict[int, torch.Tensor] = {0: xs}
+    routes = routes or plan_routes(
+        net, partition, out_rows=out_rows,
+        dtype=policy.compute if policy is not None else dtype_name(xs.dtype))
+    stored: dict[int, torch.Tensor] = {0: boundary(xs)}
     for route in routes:
         a, b = route.start, route.end
-        cnn.count_span_reads(counter, net, a, b, batch)
+        cnn.count_span_reads(counter, net, a, b, batch, bytes_per_elem=bpe)
         spill = span_spills(net, boundaries, a, b)
         engine = registry.get_engine(route.route)
         t = max(1, min(out_rows, net.map_shape(b)[0]))  # per-span clamp
         out, spilled = engine.run(params, net, a, b, stored, spill,
                                   out_rows=t)
-        cnn.count_span_writes(counter, net, b, spilled, batch)
-        stored[b] = out
-        stored.update(spilled)
+        cnn.count_span_writes(counter, net, b, spilled, batch,
+                              bytes_per_elem=bpe)
+        stored[b] = boundary(out)
+        stored.update({m: boundary(v) for m, v in spilled.items()})
     y = stored[net.n_layers]
     return y[0] if squeeze else y
 

@@ -1,6 +1,7 @@
 """The port's copies of the pure-Python planning modules stay equal to the
 reference's: the same source (imports aside), and the same partitions,
 transfers, schedules and closures on the paper's networks."""
+import ast
 import dataclasses
 from pathlib import Path
 
@@ -41,6 +42,33 @@ def test_copy_matches_reference_source(rel):
         assert ref.count(old) == 1
         ref = ref.replace(old, new)
     assert port == ref
+
+
+def _class_sources(path: Path) -> dict[str, str]:
+    """Each top-level class of a module, as its source text (decorators
+    included), read without importing the module."""
+    text = path.read_text()
+    tree = ast.parse(text)
+    lines = text.splitlines(keepends=True)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef):
+            first = min([node.lineno] + [d.lineno
+                                         for d in node.decorator_list])
+            out[node.name] = "".join(lines[first - 1:node.end_lineno])
+    return out
+
+
+@pytest.mark.parametrize("name", ["TickTimers", "_TimerContext"])
+def test_timer_classes_match_reference_source(name):
+    """The serving tick timer is a copy of the reference's classes (the
+    rest of that module imports JAX, so the whole-file check cannot
+    apply); the port's module holds nothing else."""
+    rel = "occam/calibrate/timers.py"
+    ref = _class_sources(SRC / "repro" / rel)
+    port = _class_sources(SRC / "repro_torch" / rel)
+    assert sorted(port) == ["TickTimers", "_TimerContext"]
+    assert port[name] == ref[name]
 
 
 CAPACITIES = [786_432, 3_145_728, 12_582_912]

@@ -1,6 +1,8 @@
 """GPU-only tests of the port: the CUDA fused-span, flash-attention and
 SSD-scan kernels against their plain PyTorch versions, a deployment on the
-GPU against the same deployment on the CPU, and the LMs' (Llama, Mamba2)
+GPU against the same deployment on the CPU, the fused-span kernel at a
+pinned cluster of 8, serving sessions' CUDA graphs against eager runs,
+and the LMs' (Llama, Mamba2)
 prefill and decode on the GPU against the CPU.
 
 This file imports neither JAX nor ``repro``, so it runs on a GPU machine
@@ -151,6 +153,78 @@ def test_deployment_on_gpu_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert gpu.report().matches_prediction
     assert gpu.counter.total == cpu.counter.total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,specs,hw,ch,edges,span", CASES,
+                         ids=[c[0] for c in CASES])
+def test_cuda_kernel_matches_plain_at_cluster_8(cuda, monkeypatch, name,
+                                                specs, hw, ch, edges, span):
+    """With ``CLUSTER_SIZES`` pinned to 8, every span launches clusters of
+    8 CTAs (the geometry the H100 otherwise never takes, as it places
+    16) and still equals its plain version within fp32 1e-4."""
+    monkeypatch.setattr(kernel, "CLUSTER_SIZES", (8,))
+    rng = np.random.default_rng(0)
+    net = chain(name, specs, in_h=hw, in_w=hw, in_ch=ch,
+                residual_edges=edges)
+    params = convert.params_from_numpy(numpy_params(net, rng), cuda)
+    xs = torch.from_numpy(rng.standard_normal((2, hw, hw, ch),
+                                              np.float32)).to(cuda)
+    maps = cnn.reference_forward(params, xs, net, collect=True)
+    a, b = span or (0, net.n_layers)
+    cuts = [c for c in (a, b) if 0 < c < net.n_layers]
+    spill = tuple(sorted({s for (s, t) in edges
+                          if any(s < p < t for p in cuts) and a < s < b}))
+    srcs = {s: maps[s] for (s, t) in edges if s < a < t <= b}
+    for out_rows in (1, 2):
+        got, got_sp = kernel.span_cuda_call(maps[a], params[a:b], net, a, b,
+                                            out_rows=out_rows, srcs=srcs,
+                                            spill=spill)
+        assert kernel.last_launch["cluster"] == 8
+        assert kernel.last_launch["ctas"] == 2 * 8
+        want, want_sp = span_plain_call(maps[a], params[a:b], net, a, b,
+                                        out_rows=out_rows, srcs=srcs,
+                                        spill=spill)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        for m in spill:
+            torch.testing.assert_close(got_sp[m], want_sp[m], rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "int8", "bf16"])
+def test_session_on_gpu_equals_run(cuda, policy):
+    """A serving session on the card replays one captured CUDA graph per
+    round size: its lanes equal the eager ``run`` of the same images bit
+    for bit, one capture serves every submit size, and each replay adds
+    the captured launches to the kernel's count."""
+    net = chain("res", [(C, 3, 2, 1, 4), (P, 3, 2, 1, 0), (C, 3, 1, 1, 4),
+                        (C, 3, 1, 1, 4), (C, 3, 2, 1, 8), (C, 3, 1, 1, 8)],
+                in_h=16, in_w=16, in_ch=3, residual_edges=((2, 4), (4, 6)))
+    rng = np.random.default_rng(2)
+    params = numpy_params(net, rng)
+    dep = occam.plan(net, 700, dtype_policy=policy).place().compile()
+    spans = sum(r.route == "pallas" for r in dep.routes)
+    assert spans > 0
+    sizes = [4, 1, 5, 3]
+    xs = [rng.standard_normal((n, 16, 16, 3), np.float32) for n in sizes]
+    before = kernel.launches
+    sess = dep.serve(params, round_batch=4)
+    assert kernel.launches == before + spans  # the warm-up call
+    assert sess._step.launches_per_replay == spans
+    for x in xs:
+        sess.submit(x)
+    res = sess.results()
+    rounds = -(-sum(sizes) // 4)
+    assert kernel.launches == before + spans * (1 + rounds)
+    assert sess.compile_count == 1
+    for (_t, y), x in zip(res, xs):
+        assert y.device.type == "cuda"
+        assert torch.equal(y, dep.run(params, x))
+    rep = sess.report()
+    assert rep.images == sum(sizes)
+    assert rep.matches_prediction and rep.matches_prediction_bytes
 
 
 FLASH_CASES = [

@@ -107,17 +107,18 @@ def test_compile_defaults_to_the_gpu(monkeypatch):
 
 def test_unported_slices_raise():
     net = zoo.resnet18()
-    with pytest.raises(NotImplementedError, match="quantized-spans"):
-        occam.plan(net, 3_145_728, dtype_policy="int8")
     plan = occam.plan(net, 3_145_728)
     with pytest.raises(NotImplementedError, match="STAP"):
         plan.place(chips=4)
     with pytest.raises(NotImplementedError, match="STAP"):
         plan.place(pipeline=True)
+    with pytest.raises(NotImplementedError, match="planning-frontier"):
+        plan.place().compile(device="cpu").reconcile(arrival_rate=1.0)
+    # dtype policies are ported: a reference v5 document with a quant
+    # block loads into an equal plan
     doc = j_occam.plan(j_zoo.resnet18(), 3_145_728,
                        dtype_policy="int8").to_dict()
-    with pytest.raises(NotImplementedError, match="quantized-spans"):
-        occam.plan_from_dict(doc)
+    assert occam.plan_from_dict(doc).to_dict() == doc
     doc = plan.to_dict()
     doc["calibration"] = {"version": 1}
     with pytest.raises(NotImplementedError, match="calibration"):

@@ -293,3 +293,14 @@ def test_launch_geometry_raises_outside_the_kernel():
         kernel.row_tile("conv", 33, 3, 8, 8, 16)
     with pytest.raises(ValueError, match="no tiling"):
         kernel.row_tile("conv", 3, 3, 4096, 512, 16)
+
+
+@pytest.mark.parametrize("sizes", [(4,), (), (16, 12)])
+def test_cluster_sizes_pin_is_validated(monkeypatch, sizes):
+    """``CLUSTER_SIZES`` may be pinned to (8,) or (16,); any other size is
+    refused before the device is asked anything."""
+    monkeypatch.setattr(kernel, "CLUSTER_SIZES", sizes)
+    net = chain("t", [(C, 3, 1, 1, 4)], in_h=8, in_w=8, in_ch=3)
+    with pytest.raises(ValueError, match="CLUSTER_SIZES"):
+        kernel._span_plan(net, 0, 1, (), 1, (), torch.float32,
+                          torch.device("cpu"))
