@@ -53,6 +53,26 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    bit for bit to ``Deployment.run``, launches = spans x (1 warm-up + 3
    replays), ``report().matches_prediction`` over 17 images; a replayed
    round timed (CUDA events, median of 5) beside ``run`` at batch 8.
+4d. Planning frontier and calibration: ``occam.autoplan(resnet18(),
+   Fleet(chips=1, vmem_elems=3,145,728, macs_per_s=33.5e12,
+   hbm_elems_per_s=3.35e12 / 4, dtype_policy=("fp32", "int8", "bf16")))``
+   (six single-device candidates; JSON round trip). Path
+   ``resnet18-frontier``: each candidate deployed on the card and run at
+   batch 8 (launches counted), traffic exact, fp32 outputs within
+   1e-3 * max|oracle| of the cuDNN oracle, every kernel span against its
+   plain version on the oracle's boundary maps (1e-3 * max|plain|; int8
+   and bf16 casts within one boundary step, as in 4b), and the seven span
+   shapes no earlier phase ran timed as in phase 4. Path
+   ``resnet18-calibrate``: ``Deployment.profile(params, iters=5)`` on
+   ``best("throughput")`` (spans, MACs and payloads those of the stage
+   plan, launches = kernel stages x 6), ``occam.calibrate``,
+   ``Frontier.rescore`` (winners before and after; the rescored frontier
+   and a calibrated plan saved and loaded), the calibrated period within
+   10x of the served time per image at round_batch 1 (host clock; the
+   round_batch 8 and analytic ratios printed), and ``Session.scale`` down
+   to ``for_rate``'s candidate and back to the cached deployment with one
+   capture; then the profiled spans at microbatch 1 against their plain
+   versions, timed.
 
 Then the LM serving path, Llama-3.2-1B at its full published width
 (16 layers x d_model 2048, 32/8 heads of 64, d_ff 8192, vocab 128,256;
@@ -201,6 +221,16 @@ POLICY_CASES = [("int8", [12, 15, 16, 17], 551_936),
                 ("bf16", [12, 16], 652_288)]
 # a session's submits: 17 images, rounds of 8, 7 masked lanes in the last
 SESSION_SUBMITS = (8, 1, 5, 3)
+# phase 4d's one-H100 fleet, at the data sheet's rates of the card the
+# port is measured on (nvidia-smi: NVIDIA H100 80GB HBM3, 700.00 W): fp32
+# 67 TFLOP/s on the CUDA cores = 33.5e12 multiply-adds/s, and HBM 3.35 TB/s
+# in fp32 elements
+FRONTIER_FLEET = dict(chips=1, vmem_elems=RES_CAPACITY, macs_per_s=33.5e12,
+                      hbm_elems_per_s=HBM_BYTES_PER_S / 4,
+                      dtype_policy=("fp32", "int8", "bf16"))
+# the kernel spans of the frontier's candidates that no earlier phase ran
+FRONTIER_NEW_SPANS = {(0, 8), (8, 14), (14, 15), (8, 12), (12, 14),
+                      (14, 16), (0, 14)}
 
 SSD_CASES = [
     # (B, T, H, G, P, N, chunk): the reference's SSD-scan test grid, slow
@@ -386,6 +416,82 @@ def quant_step(torch, policy, got, want):
     return torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
 
 
+def hold_spans(torch, kernel, span_plain_call, compare, label, net, plan,
+               params, xs, rec, check=lambda a, b: True, time_it=None):
+    """Walk ``plan``'s spans on the oracle's own boundary maps, under the
+    plan's dtype policy (fp32: no casts). For each kernel-routed span that
+    ``check(a, b)`` selects: the kernel against its plain version before
+    the cast (1e-3 x max|plain|, into ``rec["max_abs_err"]``), and under a
+    quantizing policy the cast output against the oracle's within one step
+    of the boundary dtype + 1e-3 x max|oracle| (the two sums round apart);
+    then ``time_it(a, b, qparams, x, kw)`` if given. Spans routed to the
+    oracle only feed the walk."""
+    from repro_torch.kernels.fused_span.ops import crossing_source_keys
+    from repro_torch.occam import registry
+    from repro_torch.occam.quant import casting
+    from repro_torch.runtime import span_engine
+
+    oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
+    pol = plan.quant
+    quantized = pol is not None and not pol.is_default
+    qparams = casting.quantize_params(params, pol) if quantized else params
+
+    def fq(t):
+        return casting.fake_quant(t, pol.boundary, pol.scale) \
+            if quantized else t
+
+    stored = {0: fq(xs)}
+    for r in plan.routes:
+        a, b = r.start, r.end
+        spill = span_engine.span_spills(net, plan.boundaries, a, b)
+        kw = dict(srcs={s: stored[s]
+                        for s in crossing_source_keys(net, a, b)},
+                  spill=spill)
+        x = stored[a]
+        o_out, o_sp = oracle.run(qparams, net, a, b, stored, spill)
+        if r.route == span_engine.ROUTE_KERNEL and check(a, b):
+            got, got_sp = kernel.span_cuda_call(x, qparams[a:b], net, a, b,
+                                                **kw)
+            plain, plain_sp = span_plain_call(x, qparams[a:b], net, a, b,
+                                              **kw)
+            err, pscale = compare(f"{label} span ({a}, {b})", got, plain,
+                                  rel=1e-3)
+            for m in spill:
+                e, _ = compare(f"{label} span ({a}, {b}) spill {m}",
+                               got_sp[m], plain_sp[m], rel=1e-3)
+                err = max(err, e)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            cast = ""
+            if quantized:
+                gap, differ = 0.0, 0.0
+                for name, k_map, o_map in [(b, got, o_out)] + [
+                        (m, got_sp[m], o_sp[m]) for m in spill]:
+                    k_q, o_q = fq(k_map), fq(o_map)
+                    d = (k_q - o_q).abs()
+                    band = quant_step(torch, pol, k_q, o_q) \
+                        + 1e-3 * float(o_q.abs().max())
+                    if bool((d > band).any()):
+                        raise AssertionError(
+                            f"{label} span ({a}, {b}) map {name}: "
+                            f"{int((d > band).sum())} elements past one "
+                            f"{pol.boundary} step + 1e-3 x max|oracle|")
+                    gap = max(gap, float(d.max()))
+                    differ = max(differ, float((d > 0).float().mean()))
+                cast = (f"; cast output against the oracle's on the same "
+                        f"input: max gap {gap:.6e}, {differ * 100:.4f}% of "
+                        f"elements differ, all within one {pol.boundary} "
+                        f"step + 1e-3 x max|oracle|")
+            print(f"{label} span ({a}, {b}): "
+                  f"{net.span_weight_elems(a, b)} weight elements, "
+                  f"max|kernel-plain| {err:.3e} (max|plain| {pscale:.3e}, "
+                  f"band 1e-3 x max|plain|){cast}; spill {list(spill)}, "
+                  f"srcs {sorted(kw['srcs'])}")
+            if time_it is not None:
+                time_it(a, b, qparams, x, kw)
+        stored[b] = fq(o_out)
+        stored.update({m: fq(v) for m, v in o_sp.items()})
+
+
 def policy_paths(torch, occam, kernel, span_plain_call, compare, time_span,
                  paths, resnet, res_params, xs8) -> dict:
     """Phase 4b: ResNet-18 planned under the int8 and bf16 policies at full
@@ -394,12 +500,6 @@ def policy_paths(torch, occam, kernel, span_plain_call, compare, time_span,
     output against the oracle deployment of the same plan, each span's
     kernel against its plain version on the policy's boundary maps, and
     the spans' times. Returns the policy deployments."""
-    from repro_torch.kernels.fused_span.ops import crossing_source_keys
-    from repro_torch.occam import registry
-    from repro_torch.occam.quant import casting
-    from repro_torch.runtime import span_engine
-
-    oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
     deps = {}
     for policy, cuts, per_image_bytes in POLICY_CASES:
         pol = occam.resolve_policy(policy)
@@ -443,61 +543,12 @@ def policy_paths(torch, occam, kernel, span_plain_call, compare, time_span,
               f"measured {measured:.0f} bytes/image == predicted "
               f"{rep.offchip_bytes:.0f}: matches_prediction and "
               f"matches_prediction_bytes True")
-        # span by span on the oracle's own boundary maps: the kernel against
-        # its plain version before the cast (1e-3 x max|plain|), and the
-        # cast output against the oracle's within one step of the boundary
-        # dtype + 1e-3 x max|oracle| (the two sums round apart); then times
-        qparams = casting.quantize_params(res_params, pol)
-
-        def fq(t):
-            return casting.fake_quant(t, pol.boundary, pol.scale)
-
-        stored = {0: fq(xs8)}
-        for r in plan.routes:
-            a, b = r.start, r.end
-            spill = span_engine.span_spills(resnet, cuts, a, b)
-            kw = dict(srcs={s: stored[s]
-                            for s in crossing_source_keys(resnet, a, b)},
-                      spill=spill)
-            xs = stored[a]
-            got, got_sp = kernel.span_cuda_call(xs, qparams[a:b], resnet, a,
-                                                b, **kw)
-            plain, plain_sp = span_plain_call(xs, qparams[a:b], resnet, a,
-                                              b, **kw)
-            err, pscale = compare(f"resnet18 {policy} span ({a}, {b})", got,
-                                  plain, rel=1e-3)
-            for m in spill:
-                e, _ = compare(f"resnet18 {policy} span ({a}, {b}) spill "
-                               f"{m}", got_sp[m], plain_sp[m], rel=1e-3)
-                err = max(err, e)
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            o_out, o_sp = oracle.run(qparams, resnet, a, b, stored, spill)
-            gap, differ = 0.0, 0.0
-            for name, k_map, o_map in [(b, got, o_out)] + [
-                    (m, got_sp[m], o_sp[m]) for m in spill]:
-                k_q, o_q = fq(k_map), fq(o_map)
-                d = (k_q - o_q).abs()
-                band = quant_step(torch, pol, k_q, o_q) \
-                    + 1e-3 * float(o_q.abs().max())
-                if bool((d > band).any()):
-                    raise AssertionError(
-                        f"resnet18 {policy} span ({a}, {b}) map {name}: "
-                        f"{int((d > band).sum())} elements past one "
-                        f"{pol.boundary} step + 1e-3 x max|oracle|")
-                gap = max(gap, float(d.max()))
-                differ = max(differ, float((d > 0).float().mean()))
-            print(f"resnet18 {policy} span ({a}, {b}): "
-                  f"{resnet.span_weight_elems(a, b)} weight elements, "
-                  f"max|kernel-plain| {err:.3e} (max|plain| {pscale:.3e}, "
-                  f"band 1e-3 x max|plain|); cast output against the "
-                  f"oracle's on the same input: max gap {gap:.6e}, "
-                  f"{differ * 100:.4f}% of elements differ, all within one "
-                  f"{pol.boundary} step + 1e-3 x max|oracle|; spill "
-                  f"{list(spill)}, srcs {sorted(kw['srcs'])}")
-            time_span(f"resnet18-{policy}", resnet, qparams, xs, a, b, kw,
-                      rec)
-            stored[b] = fq(o_out)
-            stored.update({m: fq(v) for m, v in o_sp.items()})
+        # span by span on the oracle's own boundary maps, then times
+        hold_spans(torch, kernel, span_plain_call, compare,
+                   f"resnet18 {policy}", resnet, plan, res_params, xs8, rec,
+                   time_it=lambda a, b, qp, x, kw, rec=rec, policy=policy:
+                   time_span(f"resnet18-{policy}", resnet, qp, x, a, b, kw,
+                             rec))
         print(f"resnet18 {policy} spans at batch 8: kernel sum "
               f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, cuDNN "
               f"oracle {rec['library_ms']:.3f} ms, bound sum "
@@ -576,6 +627,248 @@ def sessions(torch, kernel, compare, paths, fp32_dep, int8_dep, res_params,
                                                 "library_ms", "t_ops",
                                                 "t_mem")})
         sess.close()
+
+
+def frontier_phase(torch, occam, kernel, span_plain_call, compare,
+                   time_span, paths, resnet, res_params, xs8, res_maps):
+    """Phase 4d: the planning frontier and measured-cost calibration on
+    ResNet-18 at full width. ``autoplan`` under a one-H100 fleet; every
+    candidate deployed on the card and run at batch 8 (path
+    ``resnet18-frontier``, counted), traffic exact, fp32 outputs against
+    the oracle, every kernel span against its plain version on the
+    oracle's boundary maps (quantized ones within one boundary step), the
+    spans no earlier phase ran timed; then (path ``resnet18-calibrate``,
+    counted) ``Deployment.profile``, ``occam.calibrate``, the calibrated
+    period against served time, and ``Session.scale`` over the
+    frontier."""
+    from repro_torch.runtime.stap_pipeline import (model_stage_times,
+                                                   plan_span_stages)
+
+    out_dir = ROOT / "build" / "frontier"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fleet = occam.Fleet(**FRONTIER_FLEET)
+    t0 = time.perf_counter()
+    frontier = occam.autoplan(resnet, fleet, batch=1)
+    plan_s = time.perf_counter() - t0
+    print(f"frontier: autoplan(resnet18, {fleet.to_dict()}) in "
+          f"{plan_s:.3f} s (host clock); stats {frontier.stats}")
+    if occam.frontier_from_json(frontier.to_json()).to_dict() != \
+            frontier.to_dict():
+        raise AssertionError("frontier JSON round trip")
+
+    def pallas_spans(cand):
+        return [(r.start, r.end) for r in cand.plan.routes
+                if r.route == "pallas"]
+
+    for i, c in enumerate(frontier):
+        print(f"  candidate {i}: {c.kind}, policy {c.plan.quant.boundary}, "
+              f"cuts {c.plan.boundaries}, capacity {c.plan.capacity_elems}, "
+              f"routes {[r.route for r in c.plan.routes]}, period "
+              f"{c.period!r} s, traffic {c.traffic:.0f} elems "
+              f"({c.traffic_bytes:.0f} bytes) per image")
+    if any(c.kind != occam.SINGLE for c in frontier):
+        raise AssertionError("a one-chip fleet gave a pipeline candidate")
+    fast = frontier.best("throughput")
+    r_low = 1e-3 * min(c.throughput for c in frontier)
+    r_high = 10 * max(c.throughput for c in frontier)
+    low = frontier.for_rate(r_low)
+    want_picks = (([8, 14, 15, 16, 17], "float32"), ([14, 16], "bfloat16"))
+    if ((fast.plan.boundaries, fast.plan.quant.boundary),
+            (low.plan.boundaries, low.plan.quant.boundary)) != want_picks:
+        raise AssertionError(f"frontier picks {fast.plan.boundaries} / "
+                             f"{low.plan.boundaries}")
+
+    # -- every candidate on the kernel: the counted runs ------------------
+    rec = paths["resnet18-frontier"] = new_record()
+    deps = [c.deploy(device="cuda") for c in frontier]
+    kernel.launches = 0
+    ys = [dep.run(res_params, xs8) for dep in deps]
+    torch.cuda.synchronize()
+    rec["launches"] = kernel.launches
+    want = sum(len(pallas_spans(c)) for c in frontier)
+    if kernel.launches != want:
+        raise AssertionError(f"frontier runs: {kernel.launches} launches, "
+                             f"not {want}")
+    timed = set()
+    for i, (c, dep, y) in enumerate(zip(frontier, deps, ys)):
+        pol = c.plan.quant
+        label = f"frontier {i} ({pol.boundary} {c.plan.boundaries})"
+        rep = dep.report()
+        if not rep.matches_prediction or (
+                not pol.is_default and not rep.matches_prediction_bytes):
+            raise AssertionError(f"{label} traffic {rep}")
+        if not bool(torch.isfinite(y).all()) or \
+                tuple(y.shape) != (xs8.shape[0], 7, 7, 512):
+            raise AssertionError(f"{label} output")
+        whole = ""
+        if pol.is_default:
+            err, scale = compare(f"{label} run", y, res_maps[-1], rel=1e-3)
+            whole = (f"; max|run-oracle| {err:.3e} (max|oracle| "
+                     f"{scale:.3e})")
+        print(f"{label}: {len(pallas_spans(c))} kernel launches at batch 8, "
+              f"measured {rep.measured_per_image:.0f} elems "
+              f"({rep.measured_bytes / rep.images:.0f} bytes)/image == "
+              f"predicted: matches_prediction True{whole}")
+
+        def time_new(a, b, qp, x, kw, label=label):
+            if (a, b) in FRONTIER_NEW_SPANS and (a, b) not in timed:
+                timed.add((a, b))
+                time_span("resnet18-frontier", resnet, qp, x, a, b, kw, rec)
+
+        hold_spans(torch, kernel, span_plain_call, compare, label, resnet,
+                   c.plan, res_params, xs8, rec, time_it=time_new)
+    if timed != FRONTIER_NEW_SPANS:
+        raise AssertionError(f"new spans timed: {sorted(timed)}")
+    print(f"resnet18-frontier: {rec['launches']} launches over the six "
+          f"candidates' runs; the {len(timed)} new spans at batch 8: kernel "
+          f"sum {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, cuDNN "
+          f"oracle {rec['library_ms']:.3f} ms, bound sum "
+          f"{rec['bound_ms']:.4f} ms")
+
+    # -- profile and calibrate ------------------------------------------
+    crec = paths["resnet18-calibrate"] = new_record()
+    dep = fast.deploy(device="cuda")
+    plan = dep.plan
+    stages = plan_span_stages(plan.net, plan.partition, routes=dep.routes)
+    n_kernel = len(pallas_spans(fast))
+    kernel.launches = 0
+    prof = dep.profile(res_params, iters=5)
+    torch.cuda.synchronize()
+    prof_launches = kernel.launches
+    if prof_launches != n_kernel * 6:
+        raise AssertionError(f"profile: {prof_launches} launches, not "
+                             f"{n_kernel} x 6")
+    if (prof.spans != tuple(st.span for st in stages)
+            or prof.stage_macs != model_stage_times(plan.net, stages)
+            or prof.payload_elems != tuple(st.out_spec.elems
+                                           for st in stages[:-1])
+            or not all(s > 0 for s in prof.stage_seconds)):
+        raise AssertionError(f"profile {prof}")
+    cm = occam.calibrate(dep, res_params, rounds=5)
+    print(f"profile of frontier.best('throughput') (microbatch "
+          f"{prof.microbatch}, mean of 5 calls between CUDA events after a "
+          f"warm-up): " + ", ".join(
+              f"{s} {sec * 1e3:.4f} ms" for s, sec in
+              zip(prof.spans, prof.stage_seconds))
+          + f"; sum {sum(prof.stage_seconds) * 1e3:.4f} ms; "
+          f"{prof_launches} launches ({n_kernel} stages x (1 + 5))")
+    print(f"calibrate: macs_per_s {cm.macs_per_s!r}, stage_overhead_s "
+          f"{cm.stage_overhead_s!r}, residual {cm.residual!r}, "
+          f"compute_overhead_factor {cm.compute_overhead_factor!r} against "
+          f"the fleet's {fleet.macs_per_s!r}")
+
+    # -- rescore and persist ---------------------------------------------
+    rescored = frontier.rescore(cm)
+
+    def pick(f, objective):
+        c = f.best(objective)
+        return f"{c.plan.quant.boundary} {c.plan.boundaries} " \
+               f"(period {c.period * 1e3:.4f} ms)"
+
+    for objective in occam.OBJECTIVES:
+        print(f"best('{objective}'): analytic {pick(frontier, objective)}; "
+              f"calibrated {pick(rescored, objective)}")
+    if any(c.plan.calibration != cm for c in rescored):
+        raise AssertionError("a rescored plan lacks the calibration")
+    rescored.save(str(out_dir / "resnet18.frontier.json"))
+    if occam.load_frontier(str(out_dir / "resnet18.frontier.json")
+                           ).to_dict() != rescored.to_dict():
+        raise AssertionError("rescored frontier save/load")
+    cal_plan = plan.with_calibration(cm)
+    cal_plan.save(str(out_dir / "resnet18.plan.json"))
+    loaded = occam.load_plan(str(out_dir / "resnet18.plan.json"))
+    if loaded.to_dict() != cal_plan.to_dict() or loaded.calibration != cm:
+        raise AssertionError("calibrated plan save/load")
+    print(f"rescored frontier: {len(rescored)} candidates, each plan "
+          f"carrying the calibration; save/load_frontier and the "
+          f"calibrated plan's save/load_plan round-trip to equal dicts")
+
+    # -- calibrated period against the machine ---------------------------
+    best = rescored.best("throughput")
+    analytic = next(c for c in frontier
+                    if c.plan.boundaries == best.plan.boundaries
+                    and c.plan.quant == best.plan.quant)
+    bdep = best.deploy(device="cuda")
+    measured = {}
+    for rb in (prof.microbatch, 8):
+        with bdep.serve(res_params, round_batch=rb) as s:
+            s.submit(xs8[:rb])          # warm-up round (captures at rb)
+            s.results()
+            s.sync()
+            t0 = time.perf_counter()
+            s.submit(xs8)
+            s.results()
+            s.sync()
+            measured[rb] = (time.perf_counter() - t0) / xs8.shape[0]
+    m1 = measured[prof.microbatch]
+    if not m1 / 10 <= best.period <= 10 * m1:
+        raise AssertionError(f"calibrated period {best.period} s is not "
+                             f"within 10x of the measured {m1} s/image")
+    print(f"calibrated period of the rescored winner "
+          f"({best.plan.quant.boundary} {best.plan.boundaries}) "
+          f"{best.period * 1e3:.4f} ms; served (host clock around submit -> "
+          f"results -> sync, 8 images, after a warm-up round): "
+          + ", ".join(f"round_batch={rb} {m * 1e3:.4f} ms/image, "
+                      f"calibrated/measured {best.period / m:.4f}"
+                      for rb, m in measured.items())
+          + f"; analytic period {analytic.period * 1e3:.6f} ms, "
+          f"analytic/measured at round_batch={prof.microbatch} "
+          f"{analytic.period / m1:.6f}")
+
+    # -- autoscale over the analytic frontier ----------------------------
+    dep = fast.deploy(device="cuda")
+    sess = dep.serve(res_params, round_batch=8)
+    sess.submit(xs8)
+    low_sess = sess.scale(arrival_rate=r_low)
+    if low_sess is sess or \
+            low_sess.deployment is not low.deploy(device="cuda"):
+        raise AssertionError("scale(r_low) did not hand over to "
+                             "for_rate(r_low)'s deployment")
+    (t_old, y_old), = sess.results()
+    xs_new = torch.flip(xs8, [0])
+    low_sess.submit(xs_new)
+    (_t, y_new), = low_sess.results()
+    high_sess = low_sess.scale(arrival_rate=r_high)
+    for s in (sess, low_sess, high_sess):
+        s.close()
+    torch.cuda.synchronize()
+    crec["launches"] = kernel.launches
+    # checks after the count is read: runs made to compare do not count
+    if high_sess.deployment is not dep or high_sess.compile_count != 1 \
+            or dep._steps[8].builds != 1:
+        raise AssertionError("scale(r_high) did not return to the cached "
+                             "deployment with one capture")
+    if t_old.images != xs8.shape[0] or \
+            not torch.equal(y_old, dep.run(res_params, xs8)):
+        raise AssertionError("the old session's results")
+    if not torch.equal(y_new, low_sess.deployment.run(res_params, xs_new)):
+        raise AssertionError("the scaled session differs from run")
+    print(f"scale: fp32 {fast.plan.boundaries} session, 8 images, then "
+          f"scale(arrival_rate={r_low!r}) -> bf16 {low.plan.boundaries} "
+          f"(for_rate's pick; old results collected, new results equal "
+          f"to Deployment.run bit for bit), then scale(arrival_rate="
+          f"{r_high!r}) -> the same fp32 Deployment object, compile_count "
+          f"{high_sess.compile_count}; resnet18-calibrate "
+          f"{crec['launches']} launches (profile, calibrate, sessions)")
+
+    # the calibrate path's spans at the profile's microbatch: the kernel
+    # against its plain version, and times as in phase 4; ms is the
+    # profile's own stage sum (CUDA events, mean of 5)
+    x1 = xs8[:prof.microbatch]
+    scratch = new_record()
+    hold_spans(torch, kernel, span_plain_call, compare,
+               f"calibrate microbatch {prof.microbatch}", resnet, fast.plan,
+               res_params, x1, crec,
+               time_it=lambda a, b, qp, x, kw: time_span(
+                   "resnet18-calibrate", resnet, qp, x, a, b, kw, scratch))
+    crec.update({k: scratch[k] for k in ("plain_ms", "bound_ms",
+                                         "library_ms", "t_ops", "t_mem")})
+    crec["ms"] = sum(prof.stage_seconds) * 1e3
+    print(f"resnet18-calibrate spans at batch {prof.microbatch}: profile "
+          f"sum {crec['ms']:.4f} ms (one-call medians {scratch['ms']:.4f}),"
+          f" plain {crec['plain_ms']:.3f} ms, cuDNN oracle "
+          f"{crec['library_ms']:.3f} ms, bound sum {crec['bound_ms']:.4f} "
+          f"ms")
 
 
 def lm_serving(torch, seed, compare, flash_log) -> dict:
@@ -1318,6 +1611,8 @@ def main() -> int:
                             time_span, paths, resnet, res_params, xs8)
     sessions(torch, kernel, compare, paths, dep, pol_deps["int8"],
              res_params, xs8, rng, run_ms)
+    frontier_phase(torch, occam, kernel, span_plain_call, compare,
+                   time_span, paths, resnet, res_params, xs8, res_maps)
 
     flash_rec = lm_serving(torch, args.seed, compare,
                            libs["flash_attention"].with_suffix(".log"))
@@ -1330,7 +1625,9 @@ def main() -> int:
     # fused-span times: one batch-8 run of ResNet-18's five spans, one
     # batch-4 run of AlexNet's span, one batch-8 run of each policy plan's
     # spans; a session's ms is one replayed round of 8 (its other times are
-    # its deployment's spans'); launches: each path's counted run
+    # its deployment's spans'); the frontier's: its seven new spans at
+    # batch 8; the calibration's: the profile's stage sum at microbatch 1
+    # beside those spans' other times; launches: each path's counted run
     print(json.dumps({"kernels": [{
         "name": "fused_span",
         "path": name,

@@ -1,9 +1,27 @@
-"""Staged Occam deployment API on PyTorch: ``plan -> place -> compile``.
+"""Staged Occam deployment API on PyTorch: ``autoplan`` / ``plan -> place
+-> compile``.
+
+The front door is fleet-aware: describe the hardware once and let the
+planner derive capacity and placement, then re-rank on measurements::
 
     from repro_torch import occam
 
+    fleet = occam.Fleet(chips=1, vmem_elems=3_145_728,
+                        dtype_policy=("fp32", "int8", "bf16"))
+    frontier = occam.autoplan(net, fleet)         # Pareto candidates
+    frontier.save("resnet18.frontier.json")       # same schema as repro's
+
+    dep = frontier.best("throughput").deploy()    # one GPU ("cuda")
+    cm = occam.calibrate(dep, params)             # measured CostModel
+    frontier = frontier.rescore(cm)               # re-ranked, no DP
+    sess = dep.serve(params, round_batch=8)       # continuous serving
+    sess = sess.scale(arrival_rate=rate)          # frontier-driven autoscale
+
+``plan``/``place`` remain the low-level surface when you already know the
+capacity you want::
+
     plan = occam.plan(net, capacity_elems)        # DP + engine routes
-    plan.save("resnet18.plan.json")               # same schema as repro's
+    plan.save("resnet18.plan.json")
     dep = plan.place().compile()                  # one GPU ("cuda")
     y = dep.run(params, xs)                       # numpy or tensors
     dep.report().matches_prediction               # model == machine
@@ -15,25 +33,41 @@
 
 Execution backends live in :mod:`repro_torch.occam.registry`; the span
 engine registers the kernel (route name ``pallas``), ``scan``,
-``oracle`` and ``interpreted`` engines at import.
+``oracle`` and ``interpreted`` engines at import. Pipeline candidates
+are planned and scored, but placing one waits for the STAP pipeline
+slice of the port.
 """
 from . import quant, registry
 from .deploy import Deployment, ServingStats, Session, Ticket
 from .fleet import Fleet, load_fleet
-from .place import SINGLE, Placement
+from .place import PIPELINE, SINGLE, Placement
 from .plan import (PLAN_FORMAT_VERSION, Plan, ServingDefaults, load_plan,
                    plan, plan_from_dict, plan_from_json)
 from .quant import POLICIES, DtypePolicy, resolve_policies, resolve_policy
 from .registry import (AUTO, BackendError, EngineSpec, RouteContext,
                        backend_names, get_engine, register_engine,
                        registered_engines, unregister_engine)
+from .search import (FRONTIER_FORMAT_VERSION, OBJECTIVES, Candidate,
+                     Frontier, autoplan, frontier_from_dict,
+                     frontier_from_json, load_frontier)
+# measured-cost planning: the submodule stays importable as
+# repro_torch.occam.calibrate; the package-level name ``occam.calibrate``
+# is the entry-point FUNCTION (deployment -> CostModel)
+from .calibrate import (ChipAssignment, CostModel, StageProfile,
+                        TickTimers, pack_replicas, rescore_frontier)
+from .calibrate.cost_model import calibrate
 
 __all__ = [
-    "AUTO", "PLAN_FORMAT_VERSION", "POLICIES", "SINGLE",
-    "BackendError", "Deployment", "DtypePolicy", "EngineSpec", "Fleet",
+    "AUTO", "FRONTIER_FORMAT_VERSION", "OBJECTIVES", "PIPELINE",
+    "PLAN_FORMAT_VERSION", "POLICIES", "SINGLE",
+    "BackendError", "Candidate", "ChipAssignment", "CostModel",
+    "Deployment", "DtypePolicy", "EngineSpec", "Fleet", "Frontier",
     "Placement", "Plan", "RouteContext", "ServingDefaults",
-    "backend_names", "get_engine", "load_fleet", "load_plan", "plan",
-    "plan_from_dict", "plan_from_json", "quant", "register_engine",
-    "registered_engines", "registry", "resolve_policies", "resolve_policy",
-    "ServingStats", "Session", "Ticket", "unregister_engine",
+    "ServingStats", "Session", "StageProfile", "TickTimers", "Ticket",
+    "autoplan", "backend_names", "calibrate", "frontier_from_dict",
+    "frontier_from_json", "get_engine", "load_fleet", "load_frontier",
+    "load_plan", "pack_replicas", "plan", "plan_from_dict",
+    "plan_from_json", "quant", "register_engine", "registered_engines",
+    "registry", "rescore_frontier", "resolve_policies", "resolve_policy",
+    "unregister_engine",
 ]

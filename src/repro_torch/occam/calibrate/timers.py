@@ -1,11 +1,22 @@
 """Wall-clock observability for the serving runtime.
 
-:class:`TickTimers` is a windowed, always-on dispatch timer the serving
-session threads through every tick; it feeds the ``timing`` block of
-``Session.report()``. Deliberately cheap: one clock read per tick, a
-bounded deque, no device synchronization. The classes are the reference
-package's, copied unchanged; the synchronized stage micro-measurements
-that fit a cost model belong to the calibration slice of the port.
+Two complementary instruments:
+
+* :class:`TickTimers` — a windowed, always-on dispatch timer the
+  serving session threads through every tick; it feeds the ``timing``
+  block of ``Session.report()``. Deliberately cheap: one clock read per
+  tick, a bounded deque, no device synchronization.
+* :func:`measure_stage_seconds` — isolated, synchronized
+  micro-measurements of each span stage (warmed once, then timed over a
+  loop; CUDA events on the GPU, the host clock on the CPU) used by
+  ``occam.calibrate`` to fit a :class:`~repro_torch.occam.calibrate
+  .cost_model.CostModel`.
+
+:class:`StageProfile` is the JSON-shippable join of both: per-stage
+measured seconds, boundary-hop seconds, the analytic MACs/payloads they
+correspond to, and the live tick window — everything frontier
+re-scoring needs, exportable alongside a plan. The classes are the
+reference package's, copied unchanged.
 """
 from __future__ import annotations
 
@@ -13,6 +24,8 @@ import collections
 import dataclasses
 import time
 from typing import Callable
+
+import torch
 
 
 @dataclasses.dataclass
@@ -78,3 +91,134 @@ class _TimerContext:
     def __exit__(self, *exc):
         self.timers.record(self.timers.clock() - self._t0)
         return False
+
+
+# --------------------------------------------------------------------------
+# Isolated micro-measurements (synchronized; calibration inputs)
+# --------------------------------------------------------------------------
+
+def measure_stage_seconds(net, partition, params, *, microbatch: int = 1,
+                          iters: int = 3, out_rows: int = 1,
+                          routes=None,
+                          clock: Callable[[], float] = time.perf_counter
+                          ) -> tuple[float, ...]:
+    """Measured seconds per stage body per microbatch slot.
+
+    Each span of ``plan_span_stages(net, partition, routes=routes)`` runs
+    alone through its engine on zero maps of ``(microbatch,) +
+    map_shape`` for its input and each residual source crossing into it,
+    on the params' device, with the spill list and per-span ``out_rows``
+    clamp ``execute_partition`` uses. One warm-up call comes first (it
+    builds and caches the kernel's span descriptor), then ``iters`` calls
+    are timed and averaged: between two CUDA events on the current stream
+    on the GPU (device time), by ``clock`` on the CPU. The result aligns
+    with the MAC model ``model_stage_times`` — the (analytic, measured)
+    pairs ``fit_cost_model`` regresses."""
+    from repro_torch.occam import registry
+    from repro_torch.runtime import stap_pipeline as sp
+
+    stages = sp.plan_span_stages(net, partition, routes=routes)
+    first = next((v for p in params for v in p.values()), None)
+    device = first.device if first is not None else torch.device("cpu")
+    dtype = first.dtype if first is not None else torch.float32
+    iters = max(1, iters)
+    times = []
+    for st in stages:
+        a, b = st.span
+        stored = {k: torch.zeros((microbatch,) + net.map_shape(k),
+                                 dtype=dtype, device=device)
+                  for k in (a, *st.src_keys)}
+        engine = registry.get_engine(st.route.route)
+        t = max(1, min(out_rows, net.map_shape(b)[0]))
+
+        def call():
+            return engine.run(params, net, a, b, stored, st.spill,
+                              out_rows=t)
+
+        call()                                       # warm
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(device)
+            start.record()
+            for _ in range(iters):
+                call()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3 / iters)
+        else:
+            t0 = clock()
+            for _ in range(iters):
+                call()
+            times.append((clock() - t0) / iters)
+    return tuple(times)
+
+
+def measure_hop_seconds(ring, *, iters: int = 8,
+                        clock: Callable[[], float] = time.perf_counter
+                        ) -> float:
+    """Measured seconds for one boundary hop of one payload slot of a
+    STAP serving ring. Rings are the STAP pipeline slice of the port,
+    which has not landed: this raises ``NotImplementedError``."""
+    raise NotImplementedError(
+        "boundary hops run on STAP serving rings, the STAP pipeline slice "
+        "of the port, which has not landed")
+
+
+# --------------------------------------------------------------------------
+# The JSON-shippable join
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageProfile:
+    """Everything measured about a deployment's stages, exportable.
+
+    ``stage_seconds`` come from the isolated stage bodies
+    (:func:`measure_stage_seconds`); ``stage_macs`` / ``payload_elems``
+    are the analytic quantities they calibrate; ``hop_seconds`` is the
+    per-boundary link measurement; ``tick_*`` join the live serving
+    window (:class:`TickTimers`) when the profile was taken from a
+    running deployment."""
+
+    spans: tuple[tuple[int, int], ...]
+    replicas: tuple[int, ...]
+    stage_macs: tuple[float, ...]
+    stage_seconds: tuple[float, ...]
+    payload_elems: tuple[int, ...]       # per interior boundary
+    hop_seconds: float
+    microbatch: int
+    round_batch: int
+    tick_mean_s: float = 0.0
+    tick_count: int = 0
+    tick_busy_fraction: float = 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "spans": [list(s) for s in self.spans],
+            "replicas": list(self.replicas),
+            "stage_macs": list(self.stage_macs),
+            "stage_seconds": list(self.stage_seconds),
+            "payload_elems": list(self.payload_elems),
+            "hop_seconds": self.hop_seconds,
+            "microbatch": self.microbatch,
+            "round_batch": self.round_batch,
+            "tick_mean_s": self.tick_mean_s,
+            "tick_count": self.tick_count,
+            "tick_busy_fraction": self.tick_busy_fraction,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "StageProfile":
+        return cls(
+            spans=tuple(tuple(s) for s in d["spans"]),
+            replicas=tuple(d["replicas"]),
+            stage_macs=tuple(d["stage_macs"]),
+            stage_seconds=tuple(d["stage_seconds"]),
+            payload_elems=tuple(d["payload_elems"]),
+            hop_seconds=float(d["hop_seconds"]),
+            microbatch=int(d["microbatch"]),
+            round_batch=int(d["round_batch"]),
+            tick_mean_s=float(d.get("tick_mean_s", 0.0)),
+            tick_count=int(d.get("tick_count", 0)),
+            tick_busy_fraction=float(d.get("tick_busy_fraction", 0.0)),
+        )

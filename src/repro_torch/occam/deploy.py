@@ -18,6 +18,10 @@ excluded from measured traffic), so mixed submit sizes never rebuild the
 step. On the GPU the step is one CUDA graph per ``round_batch``, captured
 when the first session at that size opens and replayed for every round.
 ``Session.pump`` exposes single-tick advancement to external drivers.
+A deployment made by ``Candidate.deploy`` knows its planning frontier:
+``Deployment.reconcile`` and ``Session.scale`` re-pick from it for an
+arrival rate without re-running the DP, and ``Deployment.profile``
+measures its stages for ``occam.calibrate``.
 
 Every ``run`` accumulates off-chip transfers into one
 :class:`~repro_torch.core.traffic.TrafficCounter`; ``report()`` returns
@@ -30,7 +34,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Sequence
+import gc
+from typing import TYPE_CHECKING, Sequence
 
 import torch
 
@@ -45,9 +50,9 @@ from .calibrate.timers import TickTimers
 from .place import Placement
 from .quant import casting
 
-_FRONTIER_SLICE = ("serve-time autoscaling over a planning frontier runs "
-                   "in the planning-frontier and calibration slice of the "
-                   "port, which has not landed")
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from .calibrate.timers import StageProfile
+    from .search import Candidate, Frontier
 
 
 class Deployment:
@@ -72,6 +77,10 @@ class Deployment:
                                     dtype=quant.compute if quant else None)
         self.counter = TrafficCounter()
         self._images = 0
+        # set by Candidate.deploy: where this deployment sits on a
+        # planning frontier (drives reconcile / Session.scale)
+        self.candidate: "Candidate | None" = None
+        self.frontier: "Frontier | None" = None
         # single-device serving steps, one per round_batch
         self._steps: dict[int, _RoundStep] = {}
         self._per_image_cache: TrafficCounter | None = None
@@ -163,11 +172,69 @@ class Deployment:
                        max_pending=max_pending,
                        max_wait_ticks=max_wait_ticks)
 
-    def reconcile(self, frontier=None, *,
+    def reconcile(self, frontier: "Frontier | None" = None, *,
                   arrival_rate: float) -> "Deployment":
-        """Serve-time autoscaling over a planning frontier: not ported
-        yet (raises ``NotImplementedError``)."""
-        raise NotImplementedError(_FRONTIER_SLICE)
+        """Serve-time autoscaling: the deployment for the cheapest
+        frontier candidate meeting ``arrival_rate`` (images/s).
+
+        Returns ``self`` when this deployment's own candidate is already
+        the pick; otherwise the chosen candidate's (cached) deployment on
+        this deployment's backend and device — compiled placements are
+        reused per candidate, and the DP never re-runs (the frontier
+        already holds every plan). ``frontier`` defaults to the one this
+        deployment was deployed from (``Candidate.deploy``).
+        """
+        f = frontier if frontier is not None else self.frontier
+        if f is None:
+            raise ValueError(
+                "no frontier to reconcile against: deploy via "
+                "occam.autoplan(...) -> Candidate.deploy(), or pass "
+                "frontier=")
+        cand = f.for_rate(arrival_rate)
+        if self.candidate is not None and cand is self.candidate:
+            return self
+        return cand.deploy(self.backend, device=self.device)
+
+    def profile(self, params: Sequence[dict], *,
+                iters: int = 3) -> "StageProfile":
+        """Measure this deployment's stages in isolation -> a
+        JSON-shippable ``occam.calibrate.StageProfile``.
+
+        Each span stage runs alone through its engine on the deployment's
+        device at the placement's microbatch, warmed once and timed over
+        ``iters`` calls (CUDA events on the GPU). A single-device
+        placement has no boundary hop (``hop_seconds`` 0.0), and its
+        sessions keep their tick timers themselves, so the tick fields
+        stay 0. ``occam.calibrate(deployment, params)`` fits a
+        ``CostModel`` from the result.
+        """
+        from repro_torch.runtime.stap_pipeline import (model_stage_times,
+                                                       plan_span_stages)
+
+        from .calibrate.timers import StageProfile, measure_stage_seconds
+
+        plan = self.plan
+        stages = plan_span_stages(plan.net, plan.partition,
+                                  routes=self.routes)
+        stage_macs = model_stage_times(plan.net, stages)
+        payload_elems = tuple(int(st.out_spec.elems)
+                              for st in stages[:-1])
+        microbatch = self.placement.microbatch
+        params = casting.quantize_params(
+            convert.params_from_numpy(params, self.device), plan.quant)
+        stage_seconds = measure_stage_seconds(
+            plan.net, plan.partition, params, microbatch=microbatch,
+            iters=iters, out_rows=plan.out_rows, routes=self.routes)
+        round_batch, _mb = self.placement.serve_geometry(None)
+        return StageProfile(
+            spans=tuple(tuple(st.span) for st in stages),
+            replicas=tuple(self.placement.replicas),
+            stage_macs=tuple(float(m) for m in stage_macs),
+            stage_seconds=stage_seconds,
+            payload_elems=payload_elems,
+            hop_seconds=0.0,
+            microbatch=microbatch,
+            round_batch=round_batch)
 
     def report(self) -> TrafficReport:
         """Predicted and measured traffic in one object (per-image
@@ -250,6 +317,13 @@ class _RoundStep:
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = span_kernel.launches
+        # a dead step's graph, freed by the cyclic garbage collector in
+        # the middle of this capture, would invalidate it (destroying a
+        # graph is illegal while a stream captures): collect first, then
+        # hold the collector off until the capture ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 self._y = self._execute(self._params, self._x)
@@ -259,6 +333,8 @@ class _RoundStep:
                 f"{self.round_batch}) into a CUDA graph failed; serve() "
                 f"does not fall back to eager execution on the GPU") from e
         finally:
+            if collecting:
+                gc.enable()
             # a capture records launches, it makes none
             self.launches_per_replay = span_kernel.launches - before
             span_kernel.launches = before
@@ -365,10 +441,12 @@ class Session:
         self.ring_depth = placement.ring_depth
         self.max_pending = max_pending
         self.timers = TickTimers()
-        # on the device and under the plan's weight dtype, once
+        # on the device, as given (what scale() hands over), and under
+        # the plan's weight dtype, once
+        self._given_params = convert.params_from_numpy(params,
+                                                       deployment.device)
         self.params = params = casting.quantize_params(
-            convert.params_from_numpy(params, deployment.device),
-            deployment.plan.quant)
+            self._given_params, deployment.plan.quant)
         # the round's activation dtype: the params' (fp32 under every
         # policy; the casts keep it)
         self._dtype = next((v.dtype for p in params for v in p.values()),
@@ -504,9 +582,34 @@ class Session:
         return self
 
     def scale(self, *, arrival_rate: float) -> "Session":
-        """Serve-time autoscaling over a planning frontier: not ported
-        yet (raises ``NotImplementedError``)."""
-        raise NotImplementedError(_FRONTIER_SLICE)
+        """Serve-time autoscaling: re-pick the deployment for an observed
+        ``arrival_rate`` (images/s) from the planning frontier.
+
+        Returns ``self`` when the current deployment already is the
+        cheapest candidate meeting the rate. Otherwise the session is
+        flushed (outstanding tickets complete and stay collectable via
+        ``results()`` here) and a NEW session on the chosen candidate's
+        cached deployment is returned — submit new traffic there. The
+        frontier is reused as-is: no DP, no search, and candidates the
+        session scaled through before keep their deployments and their
+        captured steps. This session's ``round_batch`` carries over when
+        the new placement accepts it; otherwise the new session falls
+        back to the candidate's own geometry default. The new session
+        gets the params this one was given, and quantizes them under its
+        own plan's policy.
+        """
+        dep = self.deployment.reconcile(arrival_rate=arrival_rate)
+        if dep is self.deployment:
+            return self
+        self.flush()
+        try:
+            dep.placement.serve_geometry(self.round_batch)
+            round_batch = self.round_batch
+        except ValueError:
+            round_batch = None
+        return dep.serve(self._given_params, round_batch=round_batch,
+                         max_pending=self.max_pending,
+                         max_wait_ticks=self.max_wait_ticks)
 
     def close(self) -> list[tuple[Ticket, torch.Tensor]]:
         """Flush, collect the final results, and end the session."""

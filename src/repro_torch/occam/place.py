@@ -3,7 +3,9 @@
 A Placement binds a :class:`~repro_torch.occam.Plan` to hardware. This
 package has the single-device placement so far (all spans in sequence on
 one device — the paper's single-inference slice); the STAP pipeline
-placement arrives with the multi-chip slice of the port.
+placement (``PIPELINE``) arrives with the multi-chip slice of the port.
+Planning already scores pipeline candidates (``occam.autoplan``); placing
+one raises ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
     from .deploy import Deployment
 
 SINGLE = "single"
+PIPELINE = "pipeline"
 
 _STAP_SLICE = ("multi-chip placements (chips/replicas/stage_times/"
                "target_period/max_replicas/mesh/devices/pipeline=True) run "
@@ -30,6 +33,19 @@ class Placement:
     plan: Plan
     kind: str          # SINGLE
     microbatch: int    # images per execution slot
+    # device layout of a pipeline's serving ring ("rect" or "sum"); a
+    # single-device placement keeps the default
+    packing: str = "rect"
+
+    @property
+    def chips(self) -> int:
+        """Chips the plan accounts for: one for the single-device
+        placement."""
+        return 1
+
+    @property
+    def replicas(self) -> tuple[int, ...]:
+        return (1,)
 
     @property
     def ring_depth(self) -> int:
@@ -85,11 +101,17 @@ def place_plan(plan: Plan, *, chips: int | None = None,
                max_replicas: int | None = None,
                microbatch: int | None = None,
                mesh=None, devices=None,
-               pipeline: bool | None = None) -> Placement:
+               pipeline: bool | None = None,
+               packing: str = "rect") -> Placement:
     """Implementation of :meth:`Plan.place` (see its docstring)."""
+    if packing not in ("rect", "sum"):
+        raise ValueError(f"packing must be 'rect' or 'sum', got {packing!r}")
     multichip_args = (chips, replicas, stage_times, target_period,
                       max_replicas, mesh, devices)
     if pipeline or any(a is not None for a in multichip_args):
         raise NotImplementedError(_STAP_SLICE)
+    if packing == "sum":
+        raise ValueError("packing='sum' applies to pipeline "
+                         "placements only")
     microbatch = microbatch if microbatch is not None else plan.batch
     return Placement(plan, SINGLE, microbatch)

@@ -8,10 +8,10 @@ produce a self-contained document (the net spec rides along) a serving
 host can ``load_plan`` and compile without re-running the planner.
 
 The document format is the reference package's, schema v5, so a plan
-written by either package loads in the other. A plan may carry a dtype
-policy (the schema-v5 ``quant`` block). This package does not yet run
-calibrated cost models: documents with a non-null ``calibration`` block
-raise ``NotImplementedError``.
+written by either package loads in the other. A plan may carry a measured
+cost model (the schema-v4 ``calibration`` block, an
+``occam.calibrate.CostModel``) and a dtype policy (the schema-v5 ``quant``
+block).
 """
 from __future__ import annotations
 
@@ -54,11 +54,6 @@ PLAN_KEYS_BY_VERSION: dict[int, frozenset[str]] = {
 
 _PREDICTED_FIELDS = ("scheme", "feature_elems", "filter_elems",
                      "compute_macs", "boundary_elems")
-
-_CALIBRATION_SLICE = ("calibrated plans run in the planning-frontier and "
-                      "calibration slice of the port, which has not "
-                      "landed")
-
 
 @dataclasses.dataclass(frozen=True)
 class ServingDefaults:
@@ -103,6 +98,9 @@ class Plan:
     # output tile height t (rows per kernel step, Eqn. 6 amortization);
     # spans whose output map is shorter clamp per-span at execution
     out_rows: int = 1
+    # measured cost rates the plan was last calibrated with (v4):
+    # an ``occam.calibrate.CostModel``, or None = uncalibrated
+    calibration: object | None = None
     # dtype policy planned under (v5); None is the implicit fp32 policy
     quant: "DtypePolicy | None" = None
 
@@ -123,6 +121,11 @@ class Plan:
 
         return predicted_transfers(self.net, self.boundaries)
 
+    def with_calibration(self, cost_model) -> "Plan":
+        """This plan carrying a measured ``occam.calibrate.CostModel``
+        (persisted in the schema-v4 ``calibration`` block)."""
+        return dataclasses.replace(self, calibration=cost_model)
+
     # -- stage 2 ------------------------------------------------------------
 
     def place(self, *, chips: int | None = None,
@@ -132,7 +135,8 @@ class Plan:
               max_replicas: int | None = None,
               microbatch: int | None = None,
               mesh=None, devices=None,
-              pipeline: bool | None = None) -> "Placement":
+              pipeline: bool | None = None,
+              packing: str = "rect") -> "Placement":
         """Commit the plan to a device -> :class:`~repro_torch.occam
         .Placement`.
 
@@ -141,6 +145,9 @@ class Plan:
         (``chips`` / ``replicas`` / ``stage_times`` / ``target_period`` /
         ``max_replicas`` / ``mesh`` / ``devices`` / ``pipeline=True``)
         raise ``NotImplementedError`` until the STAP pipeline slice lands.
+        ``packing`` (``"rect"`` or ``"sum"``) is a pipeline placement's
+        device layout; ``"sum"`` on a single placement raises
+        ``ValueError``.
         """
         from .place import place_plan
 
@@ -148,7 +155,8 @@ class Plan:
                           stage_times=stage_times,
                           target_period=target_period,
                           max_replicas=max_replicas, microbatch=microbatch,
-                          mesh=mesh, devices=devices, pipeline=pipeline)
+                          mesh=mesh, devices=devices, pipeline=pipeline,
+                          packing=packing)
 
     # -- serialization ------------------------------------------------------
 
@@ -169,8 +177,8 @@ class Plan:
             "serving": self.serving.to_dict(),
             "fleet": self.fleet.to_dict() if self.fleet else None,
             "out_rows": self.out_rows,
-            # schema v4 block: this package writes only uncalibrated plans
-            "calibration": None,
+            "calibration": (self.calibration.to_dict()
+                            if self.calibration is not None else None),
             "quant": (self.quant.to_dict()
                       if self.quant is not None else None),
         }
@@ -229,8 +237,6 @@ def plan_from_dict(d: dict) -> Plan:
                 f"plan document carries unknown top-level key(s) "
                 f"{unknown}; schema version {version} defines "
                 f"{sorted(PLAN_KEYS_BY_VERSION[version])}")
-    if version >= 4 and d.get("calibration"):
-        raise NotImplementedError(_CALIBRATION_SLICE)
     net = net_from_dict(d["net"])
     spans = [Span(int(s), int(e), bool(f)) for (s, e, f) in d["spans"]]
     # The DP tables are planner scratch, not part of the shipped artifact
@@ -247,6 +253,12 @@ def plan_from_dict(d: dict) -> Plan:
     # v1/v2 had no fleet block: the plan's capacity stands alone
     fleet = Fleet.from_dict(d["fleet"]) \
         if version >= 3 and d.get("fleet") else None
+    # v1-v3 had no calibration block: the plan loads uncalibrated
+    calibration = None
+    if version >= 4 and d.get("calibration"):
+        from .calibrate.cost_model import CostModel
+
+        calibration = CostModel.from_dict(d["calibration"])
     # v1-v4 documents are implicitly fp32; a non-null quant key on one is
     # a mislabeled artifact, not a migration case: reject it
     quant = None
@@ -267,7 +279,7 @@ def plan_from_dict(d: dict) -> Plan:
             filter_bytes_per_elem=quant.weight_bytes)
     return Plan(net, int(d["capacity_elems"]), int(d["batch"]), part,
                 routes, predicted, serving, fleet,
-                int(d.get("out_rows", 1)), quant)
+                int(d.get("out_rows", 1)), calibration, quant)
 
 
 def plan_from_json(doc: str) -> Plan:

@@ -20,6 +20,8 @@ COPIES = [
     "core/graph.py", "core/closure.py", "core/partition.py",
     "core/traffic.py", "models/zoo.py", "occam/registry.py",
     "occam/fleet.py", "occam/quant/policy.py", "occam/quant/footprint.py",
+    "core/stap.py", "occam/calibrate/cost_model.py",
+    "occam/calibrate/placement.py", "occam/calibrate/rescore.py",
     "configs/__init__.py", "configs/base.py",
 ] + sorted(f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob(
     "*.py") if p.name not in ("__init__.py", "base.py"))
@@ -44,31 +46,88 @@ def test_copy_matches_reference_source(rel):
     assert port == ref
 
 
-def _class_sources(path: Path) -> dict[str, str]:
-    """Each top-level class of a module, as its source text (decorators
-    included), read without importing the module."""
-    text = path.read_text()
-    tree = ast.parse(text)
+def _sources(path: Path) -> dict[str, str]:
+    """Each top-level class, function and assignment of a module, and each
+    method of its classes (as ``Class.method``), as source text
+    (decorators included) with absolute ``repro.`` imports renamed to
+    ``repro_torch.``, read without importing the module."""
+    text = path.read_text().replace("from repro.", "from repro_torch.")
     lines = text.splitlines(keepends=True)
+
+    def source(node):
+        first = min([node.lineno] + [d.lineno for d in
+                                     getattr(node, "decorator_list", [])])
+        return "".join(lines[first - 1:node.end_lineno])
+
     out = {}
-    for node in tree.body:
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+            out[node.name] = source(node)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            for target in targets:
+                out[target.id] = source(node)
         if isinstance(node, ast.ClassDef):
-            first = min([node.lineno] + [d.lineno
-                                         for d in node.decorator_list])
-            out[node.name] = "".join(lines[first - 1:node.end_lineno])
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef):
+                    out[f"{node.name}.{item.name}"] = source(item)
     return out
 
 
-@pytest.mark.parametrize("name", ["TickTimers", "_TimerContext"])
+@pytest.mark.parametrize("name", ["TickTimers", "_TimerContext",
+                                  "StageProfile"])
 def test_timer_classes_match_reference_source(name):
-    """The serving tick timer is a copy of the reference's classes (the
-    rest of that module imports JAX, so the whole-file check cannot
-    apply); the port's module holds nothing else."""
+    """The serving tick timer and the stage profile are copies of the
+    reference's classes (the rest of that module imports JAX, so the
+    whole-file check cannot apply); besides them the port's module holds
+    only its own stage measurement."""
     rel = "occam/calibrate/timers.py"
-    ref = _class_sources(SRC / "repro" / rel)
-    port = _class_sources(SRC / "repro_torch" / rel)
-    assert sorted(port) == ["TickTimers", "_TimerContext"]
+    ref = _sources(SRC / "repro" / rel)
+    port = _sources(SRC / "repro_torch" / rel)
+    assert {k for k in port if "." not in k} == {
+        "StageProfile", "TickTimers", "_TimerContext",
+        "measure_stage_seconds", "measure_hop_seconds"}
     assert port[name] == ref[name]
+
+
+# The planning frontier and the STAP stage plan: every definition the
+# port keeps as the reference's text. search.py differs only in
+# Candidate.placement / Candidate.deploy (an explicit device) and
+# Frontier.serve (the async engine is not ported).
+TWINS = [("occam/search.py", name) for name in (
+    "FRONTIER_FORMAT_VERSION", "FRONTIER_DOCUMENT_KEYS", "OBJECTIVES",
+    "_det", "_OBJECTIVE_KEYS", "Candidate.throughput",
+    "Candidate.round_width", "Candidate.scores", "Candidate.to_dict",
+    "Candidate.from_dict", "_dominates", "Frontier.__post_init__",
+    "Frontier.__len__", "Frontier.__iter__", "Frontier.best",
+    "Frontier.for_rate", "Frontier.deploy", "Frontier.rescore",
+    "Frontier.to_dict", "Frontier.to_json", "Frontier.save",
+    "frontier_from_dict", "frontier_from_json", "load_frontier",
+    "_make_plan", "_MAX_AUTO_TILE", "_pick_out_rows", "_replica_vectors",
+    "_score", "autoplan")] + [
+    ("runtime/stap_pipeline.py", name) for name in (
+        "PayloadSpec", "payload_spec", "StageSpec", "plan_span_stages",
+        "model_stage_times")]
+
+
+@pytest.mark.parametrize("rel,name", TWINS,
+                         ids=[f"{r}::{n}" for r, n in TWINS])
+def test_twin_definitions_match_reference_source(rel, name):
+    assert _sources(SRC / "repro_torch" / rel)[name] == \
+        _sources(SRC / "repro" / rel)[name]
+
+
+def test_search_twin_differs_only_where_stated():
+    """The port's search.py defines what the reference's does, and
+    nothing that the check above does not hold equal, but three methods."""
+    rel = "occam/search.py"
+    port = _sources(SRC / "repro_torch" / rel)
+    ref = _sources(SRC / "repro" / rel)
+    assert set(port) == set(ref)
+    differ = {k for k in port if port[k] != ref[k]}
+    assert differ == {"Candidate", "Candidate.placement", "Candidate.deploy",
+                      "Frontier", "Frontier.serve"}
 
 
 CAPACITIES = [786_432, 3_145_728, 12_582_912]

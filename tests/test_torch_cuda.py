@@ -227,6 +227,36 @@ def test_session_on_gpu_equals_run(cuda, policy):
     assert rep.matches_prediction and rep.matches_prediction_bytes
 
 
+@pytest.mark.cuda
+def test_capture_holds_the_garbage_collector_off(cuda, monkeypatch):
+    """A deployment and its captured step form a reference cycle, so a
+    dropped deployment's graph is freed by the cyclic garbage collector,
+    whenever it runs; freed inside another capture, it invalidates that
+    capture. So the step collects first and holds the collector off for
+    the capture, and turns it back on after."""
+    import gc
+
+    states = []
+
+    class Recording(torch.cuda.CUDAGraph):
+        def capture_begin(self, *args, **kwargs):
+            states.append(gc.isenabled())
+            return super().capture_begin(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Recording)
+    net = chain("two", [(C, 3, 1, 1, 4), (C, 3, 2, 1, 8)], in_h=8, in_w=8,
+                in_ch=3)
+    params = numpy_params(net, np.random.default_rng(4))
+    xs = np.random.default_rng(5).standard_normal((2, 8, 8, 3), np.float32)
+    dep = occam.plan(net, 700).place().compile()
+    assert gc.isenabled()
+    with dep.serve(params, round_batch=2) as sess:
+        sess.submit(xs)
+        (_t, y), = sess.results()
+    assert states == [False] and gc.isenabled()
+    assert torch.equal(y, dep.run(params, xs))
+
+
 FLASH_CASES = [
     # (B, Hq, Hkv, Sq, Skv, D, causal): the reference's grid, slow cases
     # included, and one Sq > Skv causal case for the clamped offset

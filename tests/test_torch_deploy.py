@@ -112,17 +112,22 @@ def test_unported_slices_raise():
         plan.place(chips=4)
     with pytest.raises(NotImplementedError, match="STAP"):
         plan.place(pipeline=True)
-    with pytest.raises(NotImplementedError, match="planning-frontier"):
+    # the planning frontier is ported: a deployment that no frontier made
+    # has nothing to reconcile against
+    with pytest.raises(ValueError, match="no frontier"):
         plan.place().compile(device="cpu").reconcile(arrival_rate=1.0)
     # dtype policies are ported: a reference v5 document with a quant
     # block loads into an equal plan
     doc = j_occam.plan(j_zoo.resnet18(), 3_145_728,
                        dtype_policy="int8").to_dict()
     assert occam.plan_from_dict(doc).to_dict() == doc
+    # so are calibrated plans: a calibration block loads into a CostModel
     doc = plan.to_dict()
-    doc["calibration"] = {"version": 1}
-    with pytest.raises(NotImplementedError, match="calibration"):
-        occam.plan_from_dict(doc)
+    doc["calibration"] = {"version": 1, "macs_per_s": 3.2e11}
+    loaded = occam.plan_from_dict(doc)
+    assert loaded.calibration == occam.CostModel(macs_per_s=3.2e11)
+    assert loaded.to_dict()["calibration"] == \
+        occam.CostModel(macs_per_s=3.2e11).to_dict()
     doc = plan.to_dict()
     doc["extra"] = 1
     with pytest.raises(ValueError, match="unknown top-level"):

@@ -378,9 +378,37 @@ def test_policy_session_traffic_byte_exact(policy):
 
 
 def test_scale_and_reconcile_raise(served):
+    """Without a planning frontier ``scale`` and ``reconcile`` raise the
+    reference's ``ValueError``; a session on a frontier-deployed
+    deployment hands over to ``for_rate``'s pick, as the reference's
+    does."""
     net, params, dep = served
     sess = dep.serve(params)
-    with pytest.raises(NotImplementedError, match="planning-frontier"):
+    with pytest.raises(ValueError, match="no frontier"):
         sess.scale(arrival_rate=100.0)
-    with pytest.raises(NotImplementedError, match="planning-frontier"):
+    with pytest.raises(ValueError, match="no frontier"):
         dep.reconcile(arrival_rate=100.0)
+    fleet = dict(chips=1, vmem_elems=CAPACITY,
+                 dtype_policy=("fp32", "int8", "bf16"))
+    frontier = occam.autoplan(net, occam.Fleet(**fleet))
+    j_frontier = j_occam.autoplan(j_chain("vgg_mini", VGG, in_h=16, in_w=16,
+                                          in_ch=3), j_occam.Fleet(**fleet))
+    rate = 1e-3 * min(c.throughput for c in frontier)
+    fast = frontier.best("throughput")
+    sess = fast.deploy(device="cpu").serve(params, round_batch=3)
+    j_sess = j_frontier.best("throughput").deploy().serve(_jax(params),
+                                                          round_batch=3)
+    xs = _images(net, 4, seed=5)
+    sess.submit(xs)
+    j_sess.submit(jnp.asarray(xs))
+    scaled, j_scaled = sess.scale(arrival_rate=rate), \
+        j_sess.scale(arrival_rate=rate)
+    assert scaled is not sess and j_scaled is not j_sess
+    assert list(frontier).index(scaled.deployment.candidate) == \
+        list(j_frontier).index(j_scaled.deployment.candidate)
+    assert scaled.round_batch == j_scaled.round_batch == 3
+    (_t, y), = sess.results()
+    assert torch.equal(y, fast.deploy(device="cpu").run(params, xs))
+    scaled.submit(xs)
+    (_t, y), = scaled.results()
+    assert torch.equal(y, scaled.deployment.run(params, xs))
