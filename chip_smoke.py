@@ -73,6 +73,23 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    to ``for_rate``'s candidate and back to the cached deployment with one
    capture; then the profiled spans at microbatch 1 against their plain
    versions, timed.
+4e. The STAP pipeline (path ``resnet18-stap``), every mesh position on
+   ``cuda:0``: ``place(replicas=(4, 1, 1, 1, 1), microbatch=2)`` (a 5 x 4
+   mesh of 20 positions) ``.compile(device="cuda:0").run`` of 32 images
+   (16 microbatches, 4 rounds of width 4, 8 ticks; launches counted:
+   exactly 5 x 16 = 80), held within 1e-3 * max|oracle| of the cuDNN
+   oracle, its largest difference from the single-device ``run`` of the
+   same images printed, ``report()`` matching the prediction (200,704
+   link elements an image, payload width 150,528); the same replicas at
+   ``packing="sum"`` (8 positions) serving 17 images as 8, 1, 5 and 3 at
+   round_batch 8, equal bit for bit to ``run``'s, one tick build; the
+   int8 pipeline (ring state and payloads ``torch.int8``, traffic
+   byte-exact, each boundary held as in 4b; the whole run printed);
+   ``profile`` (its boundary hop > 0) and ``calibrate``; then the
+   pipeline ``run``, a full ring tick, the hop and the single-device
+   ``run`` of the same 32 images timed, and the path's spans over the
+   run's 16 microbatches of 2 held against their plain versions and
+   timed with them and the cuDNN oracle.
 
 Then the LM serving path, Llama-3.2-1B at its full published width
 (16 layers x d_model 2048, 32/8 heads of 64, d_ff 8192, vocab 128,256;
@@ -231,6 +248,13 @@ FRONTIER_FLEET = dict(chips=1, vmem_elems=RES_CAPACITY, macs_per_s=33.5e12,
 # the kernel spans of the frontier's candidates that no earlier phase ran
 FRONTIER_NEW_SPANS = {(0, 8), (8, 14), (14, 15), (8, 12), (12, 14),
                       (14, 16), (0, 14)}
+# phase 4e: ResNet-18's five stages with the (0, 12) stage replicated 4
+# times (1.160e9 / 4 MACs against 2.890e8: balanced within 0.4%), two
+# images a slot, 32 images streamed: 16 microbatches through 5 stages
+STAP_REPLICAS = (4, 1, 1, 1, 1)
+STAP_MICROBATCH = 2
+STAP_IMAGES = 32
+STAP_PATH = "resnet18-stap"
 
 SSD_CASES = [
     # (B, T, H, G, P, N, chunk): the reference's SSD-scan test grid, slow
@@ -869,6 +893,235 @@ def frontier_phase(torch, occam, kernel, span_plain_call, compare,
           f" plain {crec['plain_ms']:.3f} ms, cuDNN oracle "
           f"{crec['library_ms']:.3f} ms, bound sum {crec['bound_ms']:.4f} "
           f"ms")
+
+
+def stap_phase(torch, occam, kernel, span_plain_call, compare, time_span,
+               paths, resnet, res_params, rng, smi) -> None:
+    """Phase 4e (path ``resnet18-stap``): ResNet-18's STAP pipeline with
+    every mesh position on ``cuda:0``. ``run`` of 32 images through the
+    rectangular 5 x 4 mesh (counted: 5 kernel stages x 16 microbatches),
+    held against the cuDNN oracle and the single-device ``run``; the
+    sum-packed ring served 17 images as 8, 1, 5 and 3; the int8 pipeline;
+    ``profile`` (the hop) and ``calibrate``; then times."""
+    import numpy as np
+
+    from repro_torch.models import cnn
+
+    dev = torch.device("cuda", 0)
+    xs = torch.from_numpy(rng.standard_normal(
+        (STAP_IMAGES, 224, 224, 3), np.float32)).to(dev)
+    want = cnn.reference_forward(res_params, xs, resnet)
+    plan = occam.plan(resnet, RES_CAPACITY)
+    single = plan.place().compile(device=dev)
+    y_single = single.run(res_params, xs)
+    kw = dict(replicas=STAP_REPLICAS, microbatch=STAP_MICROBATCH)
+    dep = plan.place(**kw).compile(device="cuda:0")
+    if dep.mesh.shape != {"stage": 5, "replica": 4} or \
+            {str(d) for d in dep.mesh.flat} != {"cuda:0"}:
+        raise AssertionError(f"stap mesh {dep.mesh}")
+
+    # -- the counted run ------------------------------------------------
+    rec = paths[STAP_PATH] = new_record()
+    kernel.launches = 0
+    y = dep.run(res_params, xs)
+    torch.cuda.synchronize()
+    rec["launches"] = kernel.launches
+    n_mb = STAP_IMAGES // STAP_MICROBATCH
+    if kernel.launches != plan.n_spans * n_mb:
+        raise AssertionError(f"stap run: {kernel.launches} launches, not "
+                             f"{plan.n_spans} x {n_mb}")
+    err, scale = compare("stap run", y, want, rel=1e-3)
+    vs_single = float((y - y_single).abs().max())
+    pr = dep.pipeline(STAP_IMAGES).report()
+    rep = dep.report()
+    if (pr["link_elems_per_image"], pr["payload_width_padded"]) != \
+            (200_704, 150_528) or not rep.matches_prediction:
+        raise AssertionError(f"stap report {pr} {rep}")
+    print(f"stap run: {STAP_IMAGES} images, replicas {STAP_REPLICAS}, "
+          f"mesh 5 x 4 on cuda:0, {pr['n_microbatches']} microbatches of "
+          f"{STAP_MICROBATCH}, round width {pr['round_width']}, "
+          f"{pr['n_rounds']} rounds, {pr['n_ticks']} ticks; "
+          f"{rec['launches']} launches; max|run-oracle| {err:.3e} "
+          f"(max|oracle| {scale:.3e}); max|run - single-device run| "
+          f"{vs_single!r}; link {pr['link_elems_per_image']} elems/image, "
+          f"payload width {pr['payload_width_padded']}, conveyors "
+          f"{pr['conveyor_elems_per_image']} in, "
+          f"{pr['out_conveyor_elems_per_image']} out (elems/image); "
+          f"matches_prediction True")
+
+    # -- a sum-packed ring session ----------------------------------------
+    sdep = plan.place(packing="sum", **kw).compile(device="cuda:0")
+    offs = np.cumsum((0,) + SESSION_SUBMITS)
+    before = kernel.launches
+    sess = sdep.serve(res_params, round_batch=8)
+    tickets = [sess.submit(xs[a:b]) for a, b in zip(offs[:-1], offs[1:])]
+    res = sess.results()
+    torch.cuda.synchronize()
+    s_launches = kernel.launches - before
+    got = torch.cat([v for _t, v in res])
+    srep = sess.report()
+    if [t.uid for t, _ in res] != [t.uid for t in tickets] or \
+            not torch.equal(got, y[:offs[-1]]) or sess.compile_count != 1 \
+            or not srep.matches_prediction or srep.images != offs[-1]:
+        raise AssertionError(
+            f"stap session: equal {torch.equal(got, y[:offs[-1]])}, "
+            f"compile_count {sess.compile_count}, {srep}")
+    ring = sdep.ring(STAP_MICROBATCH)
+    print(f"stap session: packing sum on {sdep.mesh.shape['chip']} "
+          f"positions, round_batch 8 (width {ring.round_width} x "
+          f"{STAP_MICROBATCH}), {offs[-1]} images as {SESSION_SUBMITS}: "
+          f"{srep.serving.rounds_served} rounds, {ring.timers.count} ticks, "
+          f"{s_launches} launches; results in submit order and equal bit "
+          f"for bit to the pipeline run's; compile_count 1; "
+          f"matches_prediction True")
+
+    # -- the int8 pipeline -----------------------------------------------
+    plan8 = occam.plan(resnet, RES_CAPACITY, dtype_policy="int8")
+    dep8 = plan8.place(packing="sum", **kw).compile(device="cuda:0")
+    y8_single = plan8.place().compile(device=dev).run(res_params, xs[:8])
+    with dep8.serve(res_params, round_batch=8) as sess8:
+        t8 = sess8.submit(xs[:8])
+        state_dtypes = {str(v.dtype) for v in sess8._state}
+        (_t, y8), = sess8.results()
+        rep8 = sess8.report()
+    pay = dep8.ring(STAP_MICROBATCH).pack_round(xs[:8]).dtype
+    if t8.images != 8 or state_dtypes != {"torch.int8"} or \
+            pay != torch.int8 or not rep8.matches_prediction_bytes:
+        raise AssertionError(f"stap int8: state {state_dtypes}, payload "
+                             f"{pay}, {rep8}")
+    hold_spans(torch, kernel, span_plain_call, compare, "stap int8",
+               resnet, plan8, res_params, xs[:STAP_MICROBATCH],
+               new_record())
+    diff8 = (y8 - y8_single).abs()
+    print(f"stap int8: ring state and payloads torch.int8, measured "
+          f"{rep8.measured_bytes / rep8.images:.0f} bytes/image == "
+          f"predicted: matches_prediction_bytes True; 8 images against "
+          f"the single-device int8 run: max difference "
+          f"{float(diff8.max())!r}, elements that differ "
+          f"{float((diff8 > 0).float().mean()) * 100:.4f}%")
+
+    # -- profile and calibrate ---------------------------------------------
+    prof = dep.profile(res_params, iters=3)
+    cm = occam.calibrate(dep, res_params, rounds=3)
+    if not prof.hop_seconds > 0:
+        raise AssertionError(f"stap profile {prof}")
+    # the hop's work: a zeroed receive buffer per position of the rect
+    # ring, and a read and a write per routed pair of slot 0
+    hring = dep.ring(STAP_MICROBATCH)
+    n_pos, n_pairs = len(hring.mesh.flat), len(hring.steady.slot_perm(0))
+    hop_bytes = (n_pos + 2 * n_pairs) * STAP_MICROBATCH \
+        * pr["payload_width_padded"] * 4
+    print(f"stap profile (microbatch {prof.microbatch}, mean of 3 between "
+          f"CUDA events): " + ", ".join(
+              f"{s} {sec * 1e3:.4f} ms" for s, sec in
+              zip(prof.spans, prof.stage_seconds))
+          + f"; hop {prof.hop_seconds * 1e6:.3f} us (the device's "
+          f"time for one slot of {STAP_MICROBATCH} x "
+          f"{pr['payload_width_padded']} fp32 over the ring's routing, "
+          f"queued ahead of the host: {n_pos} zeroed receive buffers and "
+          f"{n_pairs} device-to-device copies in the H100's HBM, "
+          f"{hop_bytes / 1e6:.3f} MB, bound "
+          f"{hop_bytes / HBM_BYTES_PER_S * 1e6:.3f} us); calibrate: "
+          f"macs_per_s "
+          f"{cm.macs_per_s!r}, "
+          f"stage_overhead_s {cm.stage_overhead_s!r}, link_s_per_elem "
+          f"{cm.link_s_per_elem!r}, residual {cm.residual!r}")
+
+    # -- times ----------------------------------------------------------
+    def host_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    run_ms = host_ms(lambda: dep.run(res_params, xs))
+    single_ms = host_ms(lambda: single.run(res_params, xs))
+    state = ring.init_state()
+    full = ring.pack_round(xs[:8])
+    masks = np.ones((ring.ring_depth, ring.round_width), dtype=bool)
+    tick_ms = time_ms(torch, lambda: ring.tick(res_params, state, full,
+                                               masks))
+    print(f"time stap ({smi}): pipeline run of {STAP_IMAGES} images "
+          f"{run_ms:.3f} ms (host clock, median of 3), "
+          f"{STAP_IMAGES / run_ms * 1e3:.2f} images/s; single-device run "
+          f"of the same images {single_ms:.3f} ms, "
+          f"{STAP_IMAGES / single_ms * 1e3:.2f} images/s; a full tick of "
+          f"the packed ring (every stage live, 8 images) {tick_ms:.3f} ms "
+          f"(CUDA events, median of 5); hop "
+          f"{prof.hop_seconds * 1e6:.3f} us")
+
+    # the path's record: each kernel span, its plain version and the
+    # cuDNN oracle timed over the run's 16 microbatches of 2, one call per
+    # microbatch (the kernel's 80 launches of the counted run), on the
+    # oracle's boundary maps of the same 32 images; the bound counts the
+    # 32 images' maps and each span's weights once
+    from repro_torch.kernels.fused_span.ops import crossing_source_keys
+    from repro_torch.occam import registry
+    from repro_torch.runtime import span_engine
+
+    oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
+    hold_spans(torch, kernel, span_plain_call, compare, "stap fp32",
+               resnet, plan, res_params, xs[:STAP_MICROBATCH], rec)
+
+    def span_calls(a, b, spill, cut):
+        def kern():
+            return [kernel.span_cuda_call(x, res_params[a:b], resnet, a, b,
+                                          srcs=s, spill=spill)[0]
+                    for x, s in cut]
+
+        def plain():
+            return [span_plain_call(x, res_params[a:b], resnet, a, b,
+                                    srcs=s, spill=spill)[0]
+                    for x, s in cut]
+
+        def lib():
+            return [oracle.run(res_params, resnet, a, b, {a: x, **s},
+                               spill)[0] for x, s in cut]
+
+        return kern, plain, lib
+
+    stored = {0: xs}
+    for r in plan.routes:
+        a, b = r.start, r.end
+        spill = span_engine.span_spills(resnet, plan.boundaries, a, b)
+        keys = crossing_source_keys(resnet, a, b)
+        if r.route == span_engine.ROUTE_KERNEL:
+            cut = [(stored[a][i:i + STAP_MICROBATCH],
+                    {k: stored[k][i:i + STAP_MICROBATCH] for k in keys})
+                   for i in range(0, STAP_IMAGES, STAP_MICROBATCH)]
+            kern, plain, lib = span_calls(a, b, spill, cut)
+            for i, (got, want) in enumerate(zip(kern(), plain())):
+                err, _ = compare(f"stap span ({a}, {b}) microbatch {i}",
+                                 got, want, rel=1e-3)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            k_ms, p_ms, o_ms = (time_ms(torch, f) for f in (kern, plain,
+                                                             lib))
+            macs, nbytes, bound, bound_by = span_cost(
+                resnet, a, b, STAP_IMAGES, spill, tuple(keys))
+            rec["ms"] += k_ms
+            rec["plain_ms"] += p_ms
+            rec["library_ms"] += o_ms
+            rec["bound_ms"] += bound
+            rec["t_ops"] += 2 * macs / FP32_TFLOPS * 1e3
+            rec["t_mem"] += nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"time {STAP_PATH} span ({a}, {b}) over {len(cut)} "
+                  f"microbatches of {STAP_MICROBATCH} ({smi}): kernel "
+                  f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, cuDNN oracle "
+                  f"{o_ms:.3f} ms (CUDA events, median of 5); bound "
+                  f"{bound:.4f} ms ({bound_by})")
+        out, sp = oracle.run(res_params, resnet, a, b, stored, spill)
+        stored[b] = out
+        stored.update(sp)
+    print(f"{STAP_PATH} spans over the run's {n_mb} microbatches: kernel "
+          f"sum {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f}, cuDNN "
+          f"oracle {rec['library_ms']:.3f}, bound {rec['bound_ms']:.4f}; "
+          f"max|kernel-plain| {rec['max_abs_err']:.3e}; the pipeline run "
+          f"took {run_ms:.3f} ms")
 
 
 def lm_serving(torch, seed, compare, flash_log) -> dict:
@@ -1613,6 +1866,8 @@ def main() -> int:
              res_params, xs8, rng, run_ms)
     frontier_phase(torch, occam, kernel, span_plain_call, compare,
                    time_span, paths, resnet, res_params, xs8, res_maps)
+    stap_phase(torch, occam, kernel, span_plain_call, compare, time_span,
+               paths, resnet, res_params, rng, smi)
 
     flash_rec = lm_serving(torch, args.seed, compare,
                            libs["flash_attention"].with_suffix(".log"))
@@ -1627,7 +1882,9 @@ def main() -> int:
     # spans; a session's ms is one replayed round of 8 (its other times are
     # its deployment's spans'); the frontier's: its seven new spans at
     # batch 8; the calibration's: the profile's stage sum at microbatch 1
-    # beside those spans' other times; launches: each path's counted run
+    # beside those spans' other times; the STAP pipeline's: its spans,
+    # each timed over the run's 16 microbatches of 2 (its 80 launches);
+    # launches: each path's counted run
     print(json.dumps({"kernels": [{
         "name": "fused_span",
         "path": name,

@@ -3,8 +3,8 @@
 `closure` — row-plane tiles + dependence-closure arithmetic and the
 static span schedules; `partition` — the optimal-partition DP; `traffic`
 — analytical traffic models and the shared TrafficCounter; `graph` — the
-NetSpec. The STAP planner (`stap`) arrives with the pipeline slice.
+NetSpec; `stap` — the STAP replication planner and its tick schedules.
 """
-from . import closure, graph, partition, traffic  # noqa: F401
+from . import closure, graph, partition, stap, traffic  # noqa: F401
 
-__all__ = ["closure", "graph", "partition", "traffic"]
+__all__ = ["closure", "graph", "partition", "stap", "traffic"]

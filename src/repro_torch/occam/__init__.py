@@ -31,11 +31,15 @@ capacity you want::
         t = sess.submit(xs)                       # any number of images
         (ticket, y), = sess.results()             # submit order
 
+    dep = (plan.place(replicas=(4, 1, 1, 1, 1), microbatch=2)
+               .compile(device="cuda:0"))         # STAP pipeline, every
+    y = dep.run(params, xs)                       # position on one GPU
+    sess = dep.serve(params, round_batch=8)       # ring sessions
+
 Execution backends live in :mod:`repro_torch.occam.registry`; the span
 engine registers the kernel (route name ``pallas``), ``scan``,
-``oracle`` and ``interpreted`` engines at import. Pipeline candidates
-are planned and scored, but placing one waits for the STAP pipeline
-slice of the port.
+``oracle`` and ``interpreted`` engines at import, each but
+``interpreted`` with a pipeline stage body.
 """
 from . import quant, registry
 from .deploy import Deployment, ServingStats, Session, Ticket
@@ -46,7 +50,8 @@ from .plan import (PLAN_FORMAT_VERSION, Plan, ServingDefaults, load_plan,
 from .quant import POLICIES, DtypePolicy, resolve_policies, resolve_policy
 from .registry import (AUTO, BackendError, EngineSpec, RouteContext,
                        backend_names, get_engine, register_engine,
-                       registered_engines, unregister_engine)
+                       registered_engines, resolve_spmd_engine,
+                       unregister_engine)
 from .search import (FRONTIER_FORMAT_VERSION, OBJECTIVES, Candidate,
                      Frontier, autoplan, frontier_from_dict,
                      frontier_from_json, load_frontier)
@@ -69,5 +74,5 @@ __all__ = [
     "load_plan", "pack_replicas", "plan", "plan_from_dict",
     "plan_from_json", "quant", "register_engine", "registered_engines",
     "registry", "rescore_frontier", "resolve_policies", "resolve_policy",
-    "unregister_engine",
+    "resolve_spmd_engine", "unregister_engine",
 ]

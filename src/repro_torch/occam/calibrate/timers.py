@@ -6,9 +6,10 @@ Two complementary instruments:
   serving session threads through every tick; it feeds the ``timing``
   block of ``Session.report()``. Deliberately cheap: one clock read per
   tick, a bounded deque, no device synchronization.
-* :func:`measure_stage_seconds` — isolated, synchronized
-  micro-measurements of each span stage (warmed once, then timed over a
-  loop; CUDA events on the GPU, the host clock on the CPU) used by
+* :func:`measure_stage_seconds` / :func:`measure_hop_seconds` —
+  isolated, synchronized micro-measurements of each span stage and of a
+  pipeline's boundary hop (warmed once, then timed over a loop; CUDA
+  events on the GPU, the host clock on the CPU) used by
   ``occam.calibrate`` to fit a :class:`~repro_torch.occam.calibrate
   .cost_model.CostModel`.
 
@@ -157,12 +158,71 @@ def measure_stage_seconds(net, partition, params, *, microbatch: int = 1,
 def measure_hop_seconds(ring, *, iters: int = 8,
                         clock: Callable[[], float] = time.perf_counter
                         ) -> float:
-    """Measured seconds for one boundary hop of one payload slot of a
-    STAP serving ring. Rings are the STAP pipeline slice of the port,
-    which has not landed: this raises ``NotImplementedError``."""
-    raise NotImplementedError(
-        "boundary hops run on STAP serving rings, the STAP pipeline slice "
-        "of the port, which has not landed")
+    """Measured seconds for one boundary hop of one payload slot.
+
+    Times a chain of ``iters`` slot-level hops over the ring's own mesh
+    and routing (rect or packed), each through the tick's own hop
+    (``stap_pipeline._hop``: a zeroed receive buffer per position, then
+    one copy per (sender, receiver) pair of slot 0's routing) in the
+    ring's payload dtype, and divides out the chain length — the per-hop
+    cost ``fit_cost_model`` turns into a link rate. When every position
+    is on one GPU the chain is queued behind a device-side wait that
+    outlasts the host's issuing of it, so the two CUDA events around the
+    chain time the device's fills and copies (device-to-device copies in
+    that GPU's memory), not the host's issue rate; if the device reached
+    the first event before the host had issued the chain, the wait is
+    lengthened and the chain timed again. Otherwise the chain is timed by
+    ``clock`` after synchronizing every device, host work included.
+    Returns 0.0 for single-stage rings (no links)."""
+    from repro_torch.runtime.stap_pipeline import _hop
+
+    steady = ring.steady
+    if steady.n_stages == 1:
+        return 0.0
+    perm = ring.assignment.slot_perm(steady, 0) if ring.packing == "sum" \
+        else steady.slot_perm(0)
+    devs = ring.mesh.flat
+    shape = (1, ring.microbatch, ring.payload_width)
+    dtype = ring._payload_dtype
+    x0 = [torch.zeros(shape, dtype=dtype, device=d) for d in devs]
+
+    def chain():
+        x = x0
+        for _ in range(iters):
+            x = _hop([[v[0]] for v in x], [perm], devs, shape, dtype)
+        return x
+
+    def sync():
+        for d in set(devs):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    chain()                                          # warm
+    sync()
+    t0 = clock()
+    chain()
+    sync()
+    host_s = clock() - t0
+    if not (len(set(devs)) == 1 and devs[0].type == "cuda"):
+        return host_s / iters
+    # the wait: 4x the host's issue-and-run time at 2 GHz, and longer
+    # each time the host did not stay ahead
+    cycles = max(1 << 20, int(host_s * 4 * 2e9))
+    with torch.cuda.device(devs[0]):
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            chain()
+            end.record()
+            ahead = not start.query()
+            end.synchronize()
+            if ahead:
+                return start.elapsed_time(end) / 1e3 / iters
+            cycles *= 4
+    raise RuntimeError("the host could not issue the hop chain ahead of "
+                       "the device; the hop was not timed")
 
 
 # --------------------------------------------------------------------------

@@ -5,18 +5,31 @@ Compiling binds the placement to engines through the registry: under
 ``backend="auto"`` each span keeps the route the planner picked; a forced
 backend re-routes every span onto one engine (or raises
 :class:`~repro_torch.occam.registry.BackendError` if a span is ineligible
-— never a silent substitution). Single-device deployments execute through
-``repro_torch.runtime.span_engine.execute_partition`` on the deployment's
-device, under the plan's dtype policy.
+— never a silent substitution).
+
+* Single-device deployments execute through
+  ``repro_torch.runtime.span_engine.execute_partition`` on the
+  deployment's device, under the plan's dtype policy.
+* Pipeline deployments build (and cache, per stream batch size) a
+  ``repro_torch.runtime.stap_pipeline.StapPipeline`` over the placement's
+  :class:`~repro_torch.core.stap.StapPlan`, its positions on the
+  deployment's devices (one device may hold them all). Stage bodies
+  dispatch through the registry's ``make_spmd_body`` builders:
+  kernel-routed spans launch the CUDA fused-span kernel on a GPU
+  position — no scan substitution. Only the ``interpreted`` specification
+  is rejected on pipeline placements (it has no stage body).
 
 Serving is a first-class surface, not a loop over ``run``:
 ``Deployment.serve()`` opens a :class:`Session` — a long-lived stream of
 requests flowing through ONE fixed round shape. ``Session.submit`` packs
 ragged traffic into fixed ``round_batch`` rounds (zero-padded masked
-lanes fill the final partial round; they are dropped from outputs and
-excluded from measured traffic), so mixed submit sizes never rebuild the
-step. On the GPU the step is one CUDA graph per ``round_batch``, captured
-when the first session at that size opens and replayed for every round.
+lanes fill the final partial round; they skip compute in a pipeline, are
+dropped from outputs and are excluded from measured traffic), so mixed
+submit sizes never rebuild the step. On the GPU a single-device step is
+one CUDA graph per ``round_batch``, captured when the first session at
+that size opens and replayed for every round. Pipeline sessions iterate a
+single-tick :class:`~repro_torch.runtime.stap_pipeline.StapRing` whose
+per-position buffers are O(round_batch) regardless of stream length.
 ``Session.pump`` exposes single-tick advancement to external drivers.
 A deployment made by ``Candidate.deploy`` knows its planning frontier:
 ``Deployment.reconcile`` and ``Session.scale`` re-pick from it for an
@@ -37,6 +50,7 @@ import dataclasses
 import gc
 from typing import TYPE_CHECKING, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import convert
@@ -47,10 +61,12 @@ from repro_torch.runtime import span_engine
 
 from . import registry
 from .calibrate.timers import TickTimers
-from .place import Placement
+from .place import PIPELINE, SINGLE, Placement
 from .quant import casting
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
+    from repro_torch.runtime.stap_pipeline import StapPipeline, StapRing
+
     from .calibrate.timers import StageProfile
     from .search import Candidate, Frontier
 
@@ -59,13 +75,35 @@ class Deployment:
     """A compiled, runnable placement. Build via ``Placement.compile``."""
 
     def __init__(self, placement: Placement, backend: str = registry.AUTO,
-                 *, device: torch.device):
+                 *, device: torch.device | None = None,
+                 devices: tuple[torch.device, ...] | None = None):
         if backend != registry.AUTO:
-            registry.get_engine(backend)  # unknown names fail here
+            spec = registry.get_engine(backend)  # unknown names fail here
+            if placement.kind == PIPELINE and not spec.spmd_capable:
+                spmd = [registry.AUTO] + [e.name for e in
+                                          registry.registered_engines()
+                                          if e.spmd_capable]
+                raise registry.BackendError(
+                    f"backend {backend!r} cannot drive a pipeline "
+                    f"placement (it has no stage body; its EngineSpec is "
+                    f"not spmd_capable — choose one of {spmd})")
         self.placement = placement
         self.plan = placement.plan
         self.backend = backend
-        self.device = device
+        # a pipeline's mesh positions go on ``devices`` (repeats allowed);
+        # inputs land on, and outputs come back from, the first of them
+        self.devices = devices
+        self.device = devices[0] if placement.kind == PIPELINE else device
+        self.mesh = None
+        if placement.kind == PIPELINE:
+            from repro_torch.runtime import stap_pipeline as sp
+
+            # the serving ring's mesh, built here so that a short or mixed
+            # device list fails at compile time
+            stap = placement.stap
+            self.mesh = sp.packed_mesh(stap.chips, devices) \
+                if placement.packing == "sum" else \
+                sp.stap_mesh(len(stap.replicas), max(stap.replicas), devices)
         # forced backends re-route at compile time; BackendError surfaces
         # any span the engine cannot take. The policy's compute dtype
         # picks the routes (int8 boundaries dequantize at span entry)
@@ -81,6 +119,8 @@ class Deployment:
         # planning frontier (drives reconcile / Session.scale)
         self.candidate: "Candidate | None" = None
         self.frontier: "Frontier | None" = None
+        self._pipes: dict[int, "StapPipeline"] = {}
+        self._rings: dict[int, "StapRing"] = {}
         # single-device serving steps, one per round_batch
         self._steps: dict[int, _RoundStep] = {}
         self._per_image_cache: TrafficCounter | None = None
@@ -89,22 +129,81 @@ class Deployment:
     def kind(self) -> str:
         return self.placement.kind
 
+    def pipeline(self, batch: int) -> "StapPipeline":
+        """The STAP pipeline for streams of ``batch`` images (cached —
+        repeated ``run`` calls at one batch size reuse its stage bodies
+        and position params)."""
+        from repro_torch.runtime.stap_pipeline import StapPipeline
+
+        if self.kind != PIPELINE:
+            raise ValueError("single-device deployment has no pipeline; "
+                             "use .run directly")
+        pipe = self._pipes.get(batch)
+        if pipe is None:
+            # the batch program is rectangular whatever the ring's packing
+            reps = self.placement.stap.replicas
+            rect = len(reps) * max(reps)
+            if len(self.devices) < rect:
+                raise ValueError(
+                    f"run() executes the rectangular batch program, whose "
+                    f"mesh has {rect} positions; this sum-packed "
+                    f"deployment was compiled on {len(self.devices)} "
+                    f"devices, enough for serve() only. Compile it with "
+                    f"device= (every position on one device) or devices= "
+                    f"a list of {rect} to run it")
+            pipe = StapPipeline(
+                self.plan.net, self.plan.partition, batch,
+                self.placement.microbatch, plan=self.placement.stap,
+                mesh=self.mesh if self.placement.packing == "rect" else None,
+                devices=self.devices, routes=self.routes,
+                out_rows=self.plan.out_rows, policy=self.plan.quant)
+            self._pipes[batch] = pipe
+        return pipe
+
+    def ring(self, microbatch: int) -> "StapRing":
+        """The single-tick serving ring for ``microbatch`` images per slot
+        (cached — every session at one round geometry shares ONE tick
+        build)."""
+        from repro_torch.runtime.stap_pipeline import StapRing
+
+        if self.kind != PIPELINE:
+            raise ValueError("single-device deployment has no serving "
+                             "ring; serve() runs whole rounds per tick")
+        ring = self._rings.get(microbatch)
+        if ring is None:
+            ring = StapRing(
+                self.plan.net, self.plan.partition, microbatch,
+                plan=self.placement.stap, mesh=self.mesh,
+                routes=self.routes, out_rows=self.plan.out_rows,
+                packing=self.placement.packing, policy=self.plan.quant)
+            self._rings[microbatch] = ring
+        return ring
+
     def run(self, params: Sequence[dict], xs,
             counter: TrafficCounter | None = None) -> torch.Tensor:
-        """Execute one batch ((B, H, W, C) or one (H, W, C) image) on the
-        deployment's device. ``params`` and ``xs`` may be numpy arrays or
-        tensors anywhere; they move to the device first. ``counter``, if
-        given, also receives this call's transfers (the deployment always
-        accumulates its own)."""
+        """Execute one batch ((B, H, W, C), or one (H, W, C) image on a
+        single device) on the deployment's device(s); a pipeline's output
+        comes back on its first device. ``params`` and ``xs`` may be numpy
+        arrays or tensors anywhere; they move to the devices first.
+        ``counter``, if given, also receives this call's transfers (the
+        deployment always accumulates its own)."""
         xs = convert.array_from_numpy(xs, self.device)
-        params = convert.params_from_numpy(params, self.device)
         r0, w0 = self.counter.reads, self.counter.writes
         rb0, wb0 = self.counter.read_bytes, self.counter.write_bytes
-        y = span_engine.execute_partition(
-            params, xs, self.plan.net, self.plan.partition,
-            counter=self.counter, routes=self.routes,
-            out_rows=self.plan.out_rows, policy=self.plan.quant)
-        self._images += xs.shape[0] if xs.ndim == 4 else 1
+        if self.kind == SINGLE:
+            y = span_engine.execute_partition(
+                convert.params_from_numpy(params, self.device), xs,
+                self.plan.net, self.plan.partition, counter=self.counter,
+                routes=self.routes, out_rows=self.plan.out_rows,
+                policy=self.plan.quant)
+            self._images += xs.shape[0] if xs.ndim == 4 else 1
+        else:
+            if xs.ndim != 4:
+                raise ValueError("pipeline deployments stream batched "
+                                 "(B, H, W, C)")
+            y = self.pipeline(xs.shape[0]).run(params, xs,
+                                               counter=self.counter)
+            self._images += xs.shape[0]
         if counter is not None:
             counter.reads += self.counter.reads - r0
             counter.writes += self.counter.writes - w0
@@ -165,6 +264,16 @@ class Deployment:
         ``round_batch`` captures the step's CUDA graph here too; a failed
         capture raises — there is no eager fallback on the GPU.
         """
+        serving = self.plan.serving
+        if (self.kind == PIPELINE and serving.ring_depth is not None
+                and serving.ring_depth != self.placement.ring_depth):
+            raise ValueError(
+                f"plan records serving.ring_depth {serving.ring_depth} "
+                f"but this placement's ring is "
+                f"{self.placement.ring_depth} rounds deep (one per "
+                f"pipeline stage, {len(self.placement.replicas)} "
+                f"stages); the plan document is stale or corrupted — "
+                f"re-plan, or fix the serving block")
         # raises the serve_geometry ValueError here, with the offending
         # round_batch named
         self.placement.serve_geometry(round_batch)
@@ -179,10 +288,11 @@ class Deployment:
 
         Returns ``self`` when this deployment's own candidate is already
         the pick; otherwise the chosen candidate's (cached) deployment on
-        this deployment's backend and device — compiled placements are
-        reused per candidate, and the DP never re-runs (the frontier
-        already holds every plan). ``frontier`` defaults to the one this
-        deployment was deployed from (``Candidate.deploy``).
+        this deployment's backend and device (a pipeline's first device,
+        which then hosts every position of a pipeline pick) — compiled
+        placements are reused per candidate, and the DP never re-runs (the
+        frontier already holds every plan). ``frontier`` defaults to the
+        one this deployment was deployed from (``Candidate.deploy``).
         """
         f = frontier if frontier is not None else self.frontier
         if f is None:
@@ -201,17 +311,22 @@ class Deployment:
         JSON-shippable ``occam.calibrate.StageProfile``.
 
         Each span stage runs alone through its engine on the deployment's
-        device at the placement's microbatch, warmed once and timed over
-        ``iters`` calls (CUDA events on the GPU). A single-device
-        placement has no boundary hop (``hop_seconds`` 0.0), and its
-        sessions keep their tick timers themselves, so the tick fields
-        stay 0. ``occam.calibrate(deployment, params)`` fits a
+        (first) device at the placement's microbatch, warmed once and
+        timed over ``iters`` calls (CUDA events on the GPU). A pipeline
+        deployment also times one boundary hop over its serving ring's own
+        mesh and routing (``measure_hop_seconds``: on one GPU a
+        device-to-device copy in its memory), and joins the live tick
+        window of the busiest serving ring built so far (zeros when
+        nothing has served yet). A single-device placement has no hop
+        (``hop_seconds`` 0.0), and its sessions keep their tick timers
+        themselves. ``occam.calibrate(deployment, params)`` fits a
         ``CostModel`` from the result.
         """
         from repro_torch.runtime.stap_pipeline import (model_stage_times,
                                                        plan_span_stages)
 
-        from .calibrate.timers import StageProfile, measure_stage_seconds
+        from .calibrate.timers import (StageProfile, measure_hop_seconds,
+                                       measure_stage_seconds)
 
         plan = self.plan
         stages = plan_span_stages(plan.net, plan.partition,
@@ -225,25 +340,45 @@ class Deployment:
         stage_seconds = measure_stage_seconds(
             plan.net, plan.partition, params, microbatch=microbatch,
             iters=iters, out_rows=plan.out_rows, routes=self.routes)
+        hop = 0.0
+        if self.kind == PIPELINE and len(stages) > 1:
+            hop = measure_hop_seconds(self.ring(microbatch))
         round_batch, _mb = self.placement.serve_geometry(None)
+        timing = self._timing() or {}
         return StageProfile(
             spans=tuple(tuple(st.span) for st in stages),
             replicas=tuple(self.placement.replicas),
             stage_macs=tuple(float(m) for m in stage_macs),
             stage_seconds=stage_seconds,
             payload_elems=payload_elems,
-            hop_seconds=0.0,
+            hop_seconds=hop,
             microbatch=microbatch,
-            round_batch=round_batch)
+            round_batch=round_batch,
+            tick_mean_s=timing.get("tick_mean_s", 0.0),
+            tick_count=timing.get("tick_count", 0),
+            tick_busy_fraction=timing.get("tick_busy_fraction", 0.0))
+
+    def _timing(self) -> dict | None:
+        """Live tick-window stats from the busiest serving ring (None
+        when no ring has timed a tick)."""
+        rings = [r for r in self._rings.values() if r.timers.count]
+        if not rings:
+            return None
+        t = max(rings, key=lambda r: r.timers.count).timers
+        return {"tick_mean_s": t.mean_s(), "tick_count": t.count,
+                "tick_busy_fraction": t.busy_fraction()}
 
     def report(self) -> TrafficReport:
         """Predicted and measured traffic in one object (per-image
-        prediction + everything counted since compile)."""
-        return self.plan.predicted.with_measured(self.counter, self._images)
+        prediction + everything counted since compile), with the live
+        tick-timing window of a pipeline's serving rings attached as
+        ``report.timing`` once serving has run."""
+        rep = self.plan.predicted.with_measured(self.counter, self._images)
+        return dataclasses.replace(rep, timing=self._timing())
 
     def describe(self) -> dict:
         """Machine-readable deployment configuration (benchmarks, logs)."""
-        return {
+        d = {
             "kind": self.kind,
             "backend": self.backend,
             "device": str(self.device),
@@ -258,6 +393,18 @@ class Deployment:
             "quant": (self.plan.quant.to_dict()
                       if self.plan.quant is not None else None),
         }
+        if self.kind == PIPELINE:
+            d["replicas"] = list(self.placement.replicas)
+            d["chips"] = self.placement.chips
+            d["microbatch"] = self.placement.microbatch
+            pipes = {b: p.report() for b, p in self._pipes.items()}
+            if pipes:
+                d["pipelines"] = pipes
+            rings = {r.round_batch: r.report()
+                     for r in self._rings.values()}
+            if rings:
+                d["rings"] = rings
+        return d
 
 
 class _RoundStep:
@@ -419,9 +566,12 @@ class Session:
     One step build serves every submit size (``compile_count`` is the
     regression signal). ``report()`` attaches the session's
     masked-lane-exact measurement to the plan's per-image prediction —
-    ``matches_prediction`` holds under any mix of submit sizes. This
-    package has single-device sessions: each round completes within its
-    tick (ring depth 1).
+    ``matches_prediction`` holds under any mix of submit sizes. A
+    single-device round completes within its tick (ring depth 1); a
+    pipeline session iterates a single-tick
+    :class:`~repro_torch.runtime.stap_pipeline.StapRing`, so a round
+    leaves the ring ``ring_depth - 1`` ticks after it entered, and masked
+    slots skip their span bodies.
     """
 
     def __init__(self, deployment: Deployment, params: Sequence[dict], *,
@@ -440,19 +590,39 @@ class Session:
             placement.serve_geometry(round_batch)
         self.ring_depth = placement.ring_depth
         self.max_pending = max_pending
-        self.timers = TickTimers()
         # on the device, as given (what scale() hands over), and under
-        # the plan's weight dtype, once
+        # the plan's weight dtype, once (a pipeline's ring quantizes them
+        # itself, once per position device)
         self._given_params = convert.params_from_numpy(params,
                                                        deployment.device)
-        self.params = params = casting.quantize_params(
-            self._given_params, deployment.plan.quant)
+        self.params = params = self._given_params \
+            if deployment.kind == PIPELINE else casting.quantize_params(
+                self._given_params, deployment.plan.quant)
         # the round's activation dtype: the params' (fp32 under every
         # policy; the casts keep it)
         self._dtype = next((v.dtype for p in params for v in p.values()),
                            torch.float32)
-        self._step = deployment._serve_step(self.round_batch)
-        self._step.build(self.params, self._dtype)
+        if deployment.kind == PIPELINE:
+            self._step = None
+            self._ring = ring = deployment.ring(self.microbatch)
+            self.ring_depth = ring.ring_depth
+            # pipeline sessions share the ring's tick timer (every
+            # session at one geometry drives the same tick build)
+            self.timers = ring.timers
+            self._state = ring.init_state()
+            # the all-masked drain round, in the ring's payload dtype
+            # (a quantized ring carries e.g. int8 slots)
+            self._empty_round = torch.zeros(
+                (ring.round_width, self.microbatch, ring.payload_width),
+                dtype=ring._payload_dtype, device=deployment.device)
+            self._masks = [np.zeros(ring.round_width, dtype=bool)
+                           for _ in range(self.ring_depth)]
+        else:
+            self._ring = None
+            self._state = None
+            self.timers = TickTimers()
+            self._step = deployment._serve_step(self.round_batch)
+            self._step.build(self.params, self._dtype)
         # per-image transfer profile for masked-lane accounting: sessions
         # count per_image x valid lanes, never per_span x round size
         self._per_image = deployment._per_image_profile()
@@ -462,6 +632,9 @@ class Session:
         self._tickets: dict[int, _TicketState] = {}
         self._queue: collections.deque = collections.deque()  # [uid, xs, off]
         self._queued = 0
+        # rounds resident in the ring, oldest last: segment lists or None
+        self._in_flight: collections.deque = collections.deque(
+            [None] * (self.ring_depth - 1))
         self._banked_rounds = 0     # completed, not yet results()-collected
         self._closed = False
         # queue-side counters (surfaced via describe()/report().serving)
@@ -523,8 +696,9 @@ class Session:
         """Collect completed requests in submit order.
 
         ``flush=True`` (default) first packs any queued remainder into a
-        masked partial round, so every outstanding ticket completes;
-        ``flush=False`` returns only what full rounds already finished.
+        masked partial round and drains the ring, so every outstanding
+        ticket completes; ``flush=False`` returns only what full rounds
+        already finished.
         Collected tickets leave the session.
         """
         if flush:
@@ -543,12 +717,15 @@ class Session:
         return out
 
     def flush(self) -> None:
-        """Push the queued remainder through as a masked partial round.
-        The session stays open — steady-state serving resumes on the
-        next ``submit``."""
+        """Push the queued remainder through as a masked partial round
+        and run drain ticks until the ring holds no live rounds. The
+        session stays open — steady-state serving resumes on the next
+        ``submit``."""
         self._flushes += 1
         while self._queued:     # full rounds a refused submit left behind,
             self._tick(*self._take_round())   # then the masked partial one
+        while self.in_flight_rounds:
+            self._tick(None, None)
         self._waited = 0
 
     def pump(self, *, allow_partial: bool = False) -> bool:
@@ -557,9 +734,10 @@ class Session:
 
         A queued full round ticks first. Otherwise, with
         ``allow_partial=True``, a queued remainder ticks through as one
-        masked partial round. Returns whether a tick ran (False = nothing
-        to do: no queued round, and single-device rounds hold nothing in
-        flight).
+        masked partial round — unlike :meth:`flush`, the ring is NOT
+        drained. Otherwise a round resident in a pipeline's ring advances
+        one empty tick toward delivery. Returns whether a tick ran (False
+        = nothing to do: idle queue, empty ring).
         """
         if self._closed:
             raise RuntimeError("session is closed")
@@ -571,14 +749,18 @@ class Session:
             self._tick(*self._take_round())
             self._waited = 0
             return True
+        if self.in_flight_rounds:
+            self._tick(None, None)
+            return True
         return False
 
     def sync(self) -> "Session":
         """Block until every dispatched round has finished (rounds
         dispatch asynchronously on the GPU — time steady-state
         throughput against this)."""
-        if self.deployment.device.type == "cuda":
-            torch.cuda.synchronize(self.deployment.device)
+        for dev in set(self.deployment.devices or (self.deployment.device,)):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
     def scale(self, *, arrival_rate: float) -> "Session":
@@ -617,6 +799,7 @@ class Session:
             return []
         out = self.results()
         self._closed = True
+        self._state = None
         return out
 
     def __enter__(self) -> "Session":
@@ -629,15 +812,19 @@ class Session:
 
     @property
     def compile_count(self) -> int:
-        """Step builds behind this session (CUDA-graph captures on the
-        GPU) — 1 however submit sizes mix."""
+        """Step builds behind this session (CUDA-graph captures of a
+        single-device step on the GPU, builds of a pipeline's ring tick)
+        — 1 however submit sizes mix."""
+        if self._ring is not None:
+            return self._ring.trace_count
         return self._step.builds
 
     @property
     def in_flight_rounds(self) -> int:
-        """Rounds dispatched but not yet delivered: always 0 here, since
-        a single-device round is delivered by the tick that runs it."""
-        return 0
+        """Rounds resident in a pipeline's ring (dispatched, not yet
+        delivered); a single-device round is delivered by the tick that
+        runs it."""
+        return sum(1 for m in self._in_flight if m is not None)
 
     def serving_stats(self) -> ServingStats:
         """The queue-side state an async engine's metrics sample."""
@@ -667,7 +854,7 @@ class Session:
 
     def describe(self) -> dict:
         """Machine-readable session state (benchmarks, logs)."""
-        return {
+        d = {
             "kind": self.deployment.kind,
             "round_batch": self.round_batch,
             "microbatch": self.microbatch,
@@ -684,6 +871,9 @@ class Session:
             "flush_count": self._flushes,
             "waited_ticks": self._waited_total,
         }
+        if self._ring is not None:
+            d["ring"] = self._ring.report()
+        return d
 
     # -- internals ----------------------------------------------------------
 
@@ -725,16 +915,37 @@ class Session:
         self._queued -= n
         return segs, parts[0] if len(parts) == 1 else torch.cat(parts)
 
-    def _tick(self, segs, xs: torch.Tensor) -> None:
-        """Run one round: account its valid lanes, run it, deliver its
-        lanes to their tickets."""
-        n_valid = sum(take for _uid, take in segs)
-        self.counter.add_scaled(self._per_image, n_valid)
-        self._images += n_valid
-        self._rounds_served += 1
-        with self.timers.time():
-            lanes = self._step(self.params, xs)
-        self._deliver(segs, lanes)
+    def _tick(self, segs, xs: torch.Tensor | None) -> None:
+        """Advance one round: account its valid lanes, run it, deliver
+        the round leaving the ring (on a single device: this one) to its
+        tickets. ``segs`` None is a pipeline's empty drain tick."""
+        n_valid = 0 if segs is None else sum(take for _uid, take in segs)
+        if n_valid:
+            self.counter.add_scaled(self._per_image, n_valid)
+            self._images += n_valid
+            self._rounds_served += 1
+        if self._ring is None:
+            with self.timers.time():
+                lanes = self._step(self.params, xs)
+            self._deliver(segs, lanes)
+            return
+        ring = self._ring
+        mask = np.zeros(ring.round_width, dtype=bool)
+        if n_valid:
+            in_round = ring.pack_round(xs)
+            mask[:-(-n_valid // self.microbatch)] = True
+        else:
+            in_round = self._empty_round
+        self._masks = [mask] + self._masks[:-1]
+        self._state, lanes = ring.tick(self.params, self._state, in_round,
+                                       np.stack(self._masks))
+        if self.ring_depth > 1:
+            self._in_flight.appendleft(segs if n_valid else None)
+            exiting = self._in_flight.pop()
+        else:
+            exiting = segs if n_valid else None
+        if exiting is not None:
+            self._deliver(exiting, lanes)
 
     def _deliver(self, segs, lanes: torch.Tensor) -> None:
         off = 0

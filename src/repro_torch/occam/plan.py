@@ -136,15 +136,19 @@ class Plan:
               microbatch: int | None = None,
               mesh=None, devices=None,
               pipeline: bool | None = None,
+              harmonize: bool = False,
               packing: str = "rect") -> "Placement":
-        """Commit the plan to a device -> :class:`~repro_torch.occam
+        """Commit the plan to devices -> :class:`~repro_torch.occam
         .Placement`.
 
         With no arguments: the single-device placement (every span
-        executes in sequence on one device). The multi-chip arguments
+        executes in sequence on one device). Any multi-chip argument
         (``chips`` / ``replicas`` / ``stage_times`` / ``target_period`` /
         ``max_replicas`` / ``mesh`` / ``devices`` / ``pipeline=True``)
-        raise ``NotImplementedError`` until the STAP pipeline slice lands.
+        gives a STAP pipeline placement: one stage per span, replicas
+        from ``replicas=`` or planned by ``plan_replication`` under the
+        budget (``harmonize`` snaps them to divisors of the largest),
+        capped at what ``mesh`` / ``devices`` / the visible GPUs can hold.
         ``packing`` (``"rect"`` or ``"sum"``) is a pipeline placement's
         device layout; ``"sum"`` on a single placement raises
         ``ValueError``.
@@ -156,7 +160,7 @@ class Plan:
                           target_period=target_period,
                           max_replicas=max_replicas, microbatch=microbatch,
                           mesh=mesh, devices=devices, pipeline=pipeline,
-                          packing=packing)
+                          harmonize=harmonize, packing=packing)
 
     # -- serialization ------------------------------------------------------
 

@@ -31,11 +31,11 @@ embeds its schema-v3 plan). At serve time ``Session.scale(arrival_rate=)``
 / ``Deployment.reconcile(...)`` re-pick from the frontier — autoscaling
 without ever re-running the DP.
 
-This is the reference package's module with three differences: a
-candidate deploys onto an explicit ``device`` (``Candidate.deploy``),
-pipeline candidates are scored but placing one raises
-``NotImplementedError`` until the STAP pipeline slice of the port lands,
-and ``Frontier.serve`` raises until the async-engine slice lands.
+This is the reference package's module with two differences: a
+candidate deploys onto an explicit ``device`` (``Candidate.deploy``; a
+pipeline candidate's every mesh position on that device, or one visible
+GPU per position by default), and ``Frontier.serve`` raises until the
+async-engine slice of the port lands.
 Everything else, the scoring arithmetic included, is the reference's
 text, so a frontier document written by either package loads in the
 other and re-serializes to the same dict.
@@ -145,8 +145,6 @@ class Candidate:
         Unbalanced replica vectors were scored at ``sum(replicas)``
         chips (§III-E), so they place with ``packing="sum"``; balanced
         vectors keep the rectangular mesh (same chip count either way).
-        Placing a pipeline candidate raises ``NotImplementedError`` until
-        the STAP pipeline slice of the port lands.
         """
         if self.kind == SINGLE:
             return self.plan.place()
@@ -160,7 +158,9 @@ class Candidate:
                device: str | torch.device | None = None) -> "Deployment":
         """Compile this candidate -> :class:`~repro_torch.occam
         .Deployment` on ``device`` (``None``: the GPU, as
-        ``Placement.compile``).
+        ``Placement.compile``; a pipeline candidate puts every mesh
+        position on ``device``, or with ``None`` one visible GPU per
+        position).
 
         Deployments are cached per ``(backend, device)``, so
         frontier-driven autoscaling (``Session.scale`` /

@@ -305,23 +305,77 @@ def _run_interpreted(params, net: NetSpec, a: int, b: int, stored, spill, *,
     return torch.stack(outs), {m: torch.stack(v) for m, v in spills.items()}
 
 
+# --------------------------------------------------------------------------
+# Pipeline stage bodies (the STAP runtime's span cores)
+# --------------------------------------------------------------------------
+
+def _kernel_spmd_body(net: NetSpec, a: int, b: int, spill, src_keys, *,
+                      out_rows: int = 1):
+    """Stage-body builder for the kernel engine: the fused span as a
+    pipeline stage core, ``body(span_params, x, srcs) -> (out, spilled)``.
+    Exactly as :func:`_run_kernel`: a CUDA batch launches the kernel, a CPU
+    batch runs its plain version, and no other device has a route."""
+    def body(span_params, x, srcs):
+        out = span_ops.span_forward(x, list(span_params), net, a, b,
+                                    out_rows=out_rows,
+                                    srcs=dict(zip(src_keys, srcs)),
+                                    spill=spill)
+        return out if spill else (out, {})
+
+    return body
+
+
+def _scan_spmd_body(net: NetSpec, a: int, b: int, spill, src_keys, *,
+                    out_rows: int = 1):
+    """Stage-body builder for the scan engine: the same row-streaming math
+    as :func:`_run_scan`, with the static span schedule built once at
+    pipeline build time."""
+    schedule = closure.span_schedule(net, a, b, spill=spill,
+                                     out_rows=out_rows)
+
+    def body(span_params, x, srcs):
+        out, spills = cnn.span_scan(x, list(span_params), tuple(srcs),
+                                    net=net, a=a, b=b, schedule=schedule,
+                                    spill=spill, src_keys=src_keys)
+        return out, dict(zip(spill, spills))
+
+    return body
+
+
+def _oracle_spmd_body(net: NetSpec, a: int, b: int, spill, src_keys, *,
+                      out_rows: int = 1):
+    """Stage-body builder for the oracle engine (lower-bound spans)."""
+    def body(span_params, x, srcs):
+        stored = {a: x, **dict(zip(src_keys, srcs))}
+        full = [{}] * a + list(span_params)
+        return _run_oracle(full, net, a, b, stored, spill)
+
+    return body
+
+
 # Auto-dispatch order: kernel > scan > oracle. The interpreted
 # specification never wins auto (the oracle accepts everything first) but
-# is a valid forced backend. Pipeline stage bodies (spmd_*) arrive with
-# the multi-chip slice.
+# is a valid forced backend. spmd_capable marks the engines with a
+# pipeline stage body: kernel/scan/oracle all register a make_spmd_body
+# (the kernel's body launches the CUDA kernel on a CUDA stage, so
+# kernel-routed spans drive pipeline stages directly, no scan
+# substitution); only the interpreted per-image loop stays off pipelines.
 registry.register_engine(
     ROUTE_KERNEL, priority=10, accepts=_kernel_accepts, run=_run_kernel,
+    spmd_capable=True, make_spmd_body=_kernel_spmd_body,
     dtypes=_KERNEL_DTYPES,
     description="hand-written CUDA fused-span kernel (plain PyTorch "
                 "version on CPU tensors)")
 registry.register_engine(
     ROUTE_SCAN, priority=20, accepts=_scan_accepts, run=_run_scan,
+    spmd_capable=True, make_spmd_body=_scan_spmd_body,
     dtypes=_KERNEL_DTYPES,
     description="row-streaming loop over the span schedule "
                 "(residual-capable)")
 registry.register_engine(
     ROUTE_ORACLE, priority=30, accepts=_always_accepts(
         "layer-by-layer fallback"), run=_run_oracle,
+    spmd_capable=True, make_spmd_body=_oracle_spmd_body,
     description="layer-by-layer oracle (lower-bound spans)")
 registry.register_engine(
     ROUTE_INTERPRETED, priority=100, accepts=_always_accepts(

@@ -3,8 +3,9 @@ JSON-shippable ``StageProfile`` and ``CostModel``, the schema-v4
 calibration block both ways against reference-written plans, per-stage
 measurement with an injected clock, ``Deployment.profile`` against the
 reference's stage model, the fit ``occam.calibrate`` takes, the
-``packing`` argument, serve-time autoscaling on the CPU, and the slices
-that still raise. One test runs the autoscaling sequence on the GPU.
+``packing`` argument, serve-time autoscaling on the CPU (onto pipeline
+candidates too), and ``Frontier.serve``, which still raises. One test
+runs the autoscaling sequence on the GPU.
 
 The reference package imports JAX, which a GPU machine that has only
 PyTorch lacks; its modules come from the ``ref`` fixture, so the GPU
@@ -279,22 +280,28 @@ def test_scale_and_reconcile_on_cpu_hand_over_between_policies():
 
 
 def test_pipeline_picks_and_frontier_serve_raise():
+    """Pipeline candidates deploy (every mesh position on the CPU here),
+    and reconcile hands a single-device deployment over to one; only
+    ``Frontier.serve`` still raises (the async engine is not ported)."""
     net = _vgg()
     frontier = occam.autoplan(net, occam.Fleet(chips=6,
                                                vmem_elems=CAPACITY))
     pipe = next(c for c in frontier if c.kind == occam.PIPELINE)
-    with pytest.raises(NotImplementedError, match="STAP"):
-        pipe.deploy(device="cpu")
+    pdep = pipe.deploy(device="cpu")
+    assert pdep.kind == occam.PIPELINE and pdep.candidate is pipe
+    assert pdep.placement.packing == pipe.placement().packing
     single = next(c for c in frontier if c.kind == occam.SINGLE)
     dep = single.deploy(device="cpu")
     fast = frontier.for_rate(10.0 * max(c.throughput for c in frontier))
     assert fast.kind == occam.PIPELINE
-    with pytest.raises(NotImplementedError, match="STAP"):
-        dep.reconcile(arrival_rate=10.0 * fast.throughput)
+    fdep = dep.reconcile(arrival_rate=10.0 * fast.throughput)
+    assert fdep is fast.deploy(device="cpu") and fdep.candidate is fast
+    xs = _images(net, 3)
+    assert torch.allclose(fdep.run(_params(net), xs),
+                          dep.run(_params(net), xs), rtol=1e-4, atol=1e-4)
     with pytest.raises(NotImplementedError, match="async-engine"):
         frontier.serve(_params(net))
-    with pytest.raises(NotImplementedError, match="STAP"):
-        timers.measure_hop_seconds(None)
+    assert timers.measure_hop_seconds(fdep.ring(1)) > 0
 
 
 @pytest.mark.cuda

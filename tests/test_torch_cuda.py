@@ -2,14 +2,15 @@
 SSD-scan kernels against their plain PyTorch versions, a deployment on the
 GPU against the same deployment on the CPU, the fused-span kernel at a
 pinned cluster of 8, serving sessions' CUDA graphs against eager runs,
-and the LMs' (Llama, Mamba2)
-prefill and decode on the GPU against the CPU.
+STAP pipelines on one GPU against the single-device run, and the LMs'
+(Llama, Mamba2) prefill and decode on the GPU against the CPU.
 
 This file imports neither JAX nor ``repro``, so it runs on a GPU machine
 that has only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``. Without a visible GPU each test skips itself.
 """
 import copy
+import time
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_cb_plain,
 from repro_torch.launch.serve import generate
 from repro_torch.models import cnn
 from repro_torch.models.api import build_model, make_batch
+from repro_torch.occam.calibrate import timers
 
 C, P = "conv", "pool"
 
@@ -282,6 +284,98 @@ def flash_inputs(case, dev, dtype=torch.float32, seed=0):
     g = torch.Generator().manual_seed(seed)
     return [torch.randn(shape, generator=g).to(dev, dtype)
             for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+# (net, capacity, replicas for the rect and the sum-packed pipeline)
+PIPE_NETS = {
+    "vgg_mini": (chain("vgg_mini", [
+        (C, 3, 1, 1, 8), (C, 3, 1, 1, 8), (P, 2, 2, 0, 0), (C, 3, 1, 1, 16),
+        (C, 3, 1, 1, 16), (P, 2, 2, 0, 0), (C, 3, 1, 1, 16)],
+        in_h=16, in_w=16, in_ch=3), 6000, (2, 1, 1), (3, 2, 1)),
+    # the cut at 5 splits the residual edge (4, 6): map 4 rides the
+    # payload across it
+    "res": (chain("res", [(C, 3, 2, 1, 4), (P, 3, 2, 1, 0), (C, 3, 1, 1, 4),
+                          (C, 3, 1, 1, 4), (C, 3, 2, 1, 8), (C, 3, 1, 1, 8)],
+                  in_h=16, in_w=16, in_ch=3,
+                  residual_edges=((2, 4), (4, 6))),
+            700, (2, 1, 1, 1), (3, 2, 1, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packing", ["rect", "sum"])
+@pytest.mark.parametrize("name", sorted(PIPE_NETS))
+def test_pipeline_on_one_gpu_equals_single_run(cuda, name, packing):
+    """A STAP pipeline with every mesh position on ``cuda:0`` equals the
+    single-device ``run`` of the same images within fp32 1e-4: ``run``
+    through the rectangular mesh, a ring session through the sum-packed
+    one. Every kernel-routed stage launches the kernel once per live
+    slot it owns: stages x microbatches for ``run``."""
+    net, capacity, rect, packed = PIPE_NETS[name]
+    rng = np.random.default_rng(3)
+    params = numpy_params(net, rng)
+    xs = rng.standard_normal((8,) + net.map_shape(0), np.float32)
+    plan = occam.plan(net, capacity)
+    want = plan.place().compile().run(params, xs)
+    stages = sum(r.route == "pallas" for r in plan.routes)
+    assert stages == plan.n_spans
+    dep = plan.place(replicas=rect if packing == "rect" else packed,
+                     microbatch=2, packing=packing).compile(device="cuda:0")
+    assert {d.type for d in dep.mesh.flat} == {"cuda"}
+    before = kernel.launches
+    if packing == "rect":
+        y = dep.run(params, xs)
+        torch.cuda.synchronize()
+        assert kernel.launches - before == stages * 4
+        assert dep.report().matches_prediction
+    else:
+        sess = dep.serve(params)
+        sess.submit(xs[:3])
+        sess.submit(xs[3:])
+        y = torch.cat([v for _t, v in sess.results()])
+        torch.cuda.synchronize()
+        assert sess.compile_count == 1
+        assert sess.report().matches_prediction
+        # one round of 12 slots of 2: 4 live slots at every stage
+        assert sess.round_batch == 12
+        assert kernel.launches - before == stages * 4
+    assert y.device == torch.device("cuda", 0)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pipeline_mesh_mixing_cpu_and_cuda_raises(cuda):
+    net, capacity, rect, _packed = PIPE_NETS["vgg_mini"]
+    placement = occam.plan(net, capacity).place(replicas=rect)
+    with pytest.raises(ValueError, match="all CUDA devices or all the CPU"):
+        placement.compile(devices=["cuda:0", "cpu"] * 3)
+    assert placement.compile(devices=["cuda:0"] * 6).device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_pipeline_hop_is_timed_on_the_device(cuda):
+    """``measure_hop_seconds`` on a ``cuda:0`` mesh times the tick's own
+    hop (``stap_pipeline._hop``) with the device ahead of the host: a
+    positive time, below the host-clock time of the same hops issued one
+    after another and synchronized (which holds the host's issue)."""
+    from repro_torch.runtime import stap_pipeline as sp
+
+    net, capacity, _rect, packed = PIPE_NETS["vgg_mini"]
+    ring = occam.plan(net, capacity).place(
+        replicas=packed, microbatch=2, packing="sum").compile(
+        device="cuda:0").ring(2)
+    hop = timers.measure_hop_seconds(ring, iters=16)
+    perm = ring.assignment.slot_perm(ring.steady, 0)
+    devs = ring.mesh.flat
+    shape = (1, 2, ring.payload_width)
+    x = [torch.zeros(shape, device=d) for d in devs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        x = sp._hop([[v[0]] for v in x], [perm], devs, shape, torch.float32)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / 16
+    assert 0 < hop < host
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The port's staged API against the reference's: identical plan documents,
 JSON both ways, the checked-in plans loading and running, the device
-default, the slices not yet ported raising, and params conversion."""
+default, the slices once pinned as raising, and params conversion."""
 from pathlib import Path
 
 import jax
@@ -106,12 +106,24 @@ def test_compile_defaults_to_the_gpu(monkeypatch):
 
 
 def test_unported_slices_raise():
+    """The slices this test once pinned as raising are ported: multi-chip
+    arguments give the reference's pipeline placements (and the
+    reference's error for a budget below one chip a stage)."""
     net = zoo.resnet18()
     plan = occam.plan(net, 3_145_728)
-    with pytest.raises(NotImplementedError, match="STAP"):
-        plan.place(chips=4)
-    with pytest.raises(NotImplementedError, match="STAP"):
-        plan.place(pipeline=True)
+    j_plan = j_occam.plan(j_zoo.resnet18(), 3_145_728)
+    for p in (plan, j_plan):
+        with pytest.raises(ValueError, match="5 stages"):
+            p.place(chips=4)
+    pl = plan.place(pipeline=True)
+    assert (pl.kind, pl.replicas, pl.ring_depth) == \
+        (occam.PIPELINE, (1,) * 5, 5)
+    pl = plan.place(replicas=(4, 1, 1, 1, 1), microbatch=2)
+    j_pl = j_plan.place(replicas=(4, 1, 1, 1, 1), microbatch=2)
+    assert (pl.chips, pl.devices_needed, pl.serve_geometry()) == \
+        (j_pl.chips, j_pl.devices_needed, j_pl.serve_geometry()) == \
+        (8, 20, (8, 2))
+    assert pl.stap.throughput == j_pl.stap.throughput
     # the planning frontier is ported: a deployment that no frontier made
     # has nothing to reconcile against
     with pytest.raises(ValueError, match="no frontier"):

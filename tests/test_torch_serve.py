@@ -309,8 +309,14 @@ def test_serve_geometry_matches_reference():
     assert occam.plan(net, CAPACITY, batch=2, round_batch=8).place() \
         .serve_geometry() == (8, 8)
     assert occam.plan(net, CAPACITY, batch=2).place().microbatch == 2
-    with pytest.raises(NotImplementedError, match="STAP"):
-        occam.plan(net, CAPACITY).place(chips=3)
+    # a pipeline's rounds are whole multiples of its round width
+    pl = occam.plan(net, CAPACITY, batch=2).place(replicas=(1, 2, 1))
+    j_pl = j_occam.plan(j_net, CAPACITY, batch=2).place(replicas=(1, 2, 1))
+    assert pl.ring_depth == j_pl.ring_depth == 3
+    for rb in (None, 2, 6):
+        assert pl.serve_geometry(rb) == j_pl.serve_geometry(rb)
+    with pytest.raises(ValueError, match="round width 2"):
+        pl.serve_geometry(3)
 
 
 def test_serve_argument_errors(served):
