@@ -90,6 +90,32 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    ``run`` of the same 32 images timed, and the path's spans over the
    run's 16 microbatches of 2 held against their plain versions and
    timed with them and the cuDNN oracle.
+4f. The async serving engine: 64 images at 224x224 as 13 requests
+   (8, 1, 5, 3, 8, 2, 7, 8, 1, 6, 8, 4, 3) from three tenants in turn,
+   sent as numpy under one ``asyncio.run``. Path ``resnet18-async``:
+   ``frontier.serve(params, objective="throughput", device="cuda",
+   round_batch=8, max_wait_ms=2.0, max_pending=64, audit="error")`` on
+   phase 4d's frontier: every ticket equal bit for bit to
+   ``Deployment.run``, ``compile_count`` equal to a bare session's on the
+   same mix (both 1), launches = spans x (captures + rounds dispatched,
+   from ``describe()``), ``packs_overlapped`` >= 1,
+   ``matches_prediction``. Path ``resnet18-stap-async``: ``AsyncEngine``
+   over phase 4e's sum-packed ring deployment on the same mix: 0.0 from
+   the single-device run, bit-equal to a bare ring session with its
+   ``compile_count``, launches = stages x live slots. Then one damped
+   autoscale switch (``windows=3``, three ``autoscale_step`` calls at a
+   rate for which ``for_rate`` picks another candidate, three more that
+   must not switch) with a ticket split across it and the DP disabled;
+   ``occam.audit`` of the frontier, every placement and both deployments
+   and ``occam.lint_serve()``, zero findings; and each engine's images/s
+   on the mix beside its bare session's (five runs each), with the
+   host-delivery p50/p99 of ``MetricsRing`` and the time the burst's
+   13 submits take before the first round (host clock,
+   ``torch.cuda.synchronize()`` before it is read: a ticket resolves
+   before the device has finished its round), then one run of each
+   under ``torch.profiler`` (host operations, the device's idle share).
+   Each path's record times its spans on one round's work (a round of 8;
+   a ring slot of 2) as in phase 4.
 
 Then the LM serving path, Llama-3.2-1B at its full published width
 (16 layers x d_model 2048, 32/8 heads of 64, d_ff 8192, vocab 128,256;
@@ -255,6 +281,11 @@ STAP_REPLICAS = (4, 1, 1, 1, 1)
 STAP_MICROBATCH = 2
 STAP_IMAGES = 32
 STAP_PATH = "resnet18-stap"
+# phase 4f: 64 images at 224x224 as 13 requests from three tenants in turn
+ASYNC_SUBMITS = (8, 1, 5, 3, 8, 2, 7, 8, 1, 6, 8, 4, 3)
+ASYNC_TENANTS = 3
+ASYNC_PATH = "resnet18-async"
+STAP_ASYNC_PATH = "resnet18-stap-async"
 
 SSD_CASES = [
     # (B, T, H, G, P, N, chunk): the reference's SSD-scan test grid, slow
@@ -421,6 +452,31 @@ def trace_breakdown(torch, name, fn, top=8):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.self_device_time_total / 1e3 / busy_ms * 100:6.2f}% "
               f"x{e.count:<5d} {e.key[:90]}")
+
+
+def host_trace(torch, name, fn, top=10):
+    """Profile one call of ``fn`` (it synchronizes at its end): print the
+    host-clock time, the device's busy time and idle share, and the
+    ``top`` host operations by their own host time (CUDA runtime calls
+    included), with their counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if str(e.device_type).endswith("CUDA")) / 1e3
+    idle = max(0.0, 1 - busy_ms / wall_ms) * 100
+    print(f"trace {name}: host clock {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle {idle:.2f}%; host operations by own "
+          f"host time:")
+    host = [e for e in events if e.self_cpu_time_total > 0]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms x{e.count:<6d} "
+              f"{e.key[:80]}")
 
 
 def new_record() -> dict:
@@ -893,10 +949,11 @@ def frontier_phase(torch, occam, kernel, span_plain_call, compare,
           f" plain {crec['plain_ms']:.3f} ms, cuDNN oracle "
           f"{crec['library_ms']:.3f} ms, bound sum {crec['bound_ms']:.4f} "
           f"ms")
+    return frontier
 
 
 def stap_phase(torch, occam, kernel, span_plain_call, compare, time_span,
-               paths, resnet, res_params, rng, smi) -> None:
+               paths, resnet, res_params, rng, smi):
     """Phase 4e (path ``resnet18-stap``): ResNet-18's STAP pipeline with
     every mesh position on ``cuda:0``. ``run`` of 32 images through the
     rectangular 5 x 4 mesh (counted: 5 kernel stages x 16 microbatches),
@@ -1122,6 +1179,302 @@ def stap_phase(torch, occam, kernel, span_plain_call, compare, time_span,
           f"oracle {rec['library_ms']:.3f}, bound {rec['bound_ms']:.4f}; "
           f"max|kernel-plain| {rec['max_abs_err']:.3e}; the pipeline run "
           f"took {run_ms:.3f} ms")
+    return sdep
+
+
+def async_phase(torch, occam, kernel, span_plain_call, compare, time_span,
+                paths, resnet, res_params, rng, smi, frontier, stap_dep):
+    """Phase 4f: the async serving engine on the card. Path
+    ``resnet18-async``: ``frontier.serve`` (phase 4d's frontier) takes 64
+    images as 13 requests from three tenants; path
+    ``resnet18-stap-async``: ``AsyncEngine`` over phase 4e's sum-packed
+    ring deployment takes the same mix. Each ticket is held bit for bit
+    (against ``Deployment.run``, or the single-device run for the ring),
+    ``compile_count`` against a bare session's on the same mix, the
+    launches against spans x rounds (or stages x live slots); then one
+    damped autoscale switch with a ticket in flight and the DP disabled,
+    the audit and the serve lint, and the engines' images/s against the
+    bare sessions' (host clock, synchronized before it is read)."""
+    import asyncio
+
+    import numpy as np
+
+    import repro_torch.core.partition as partition_mod
+
+    dev = torch.device("cuda", 0)
+    n_img = sum(ASYNC_SUBMITS)
+    xs = rng.standard_normal((n_img, 224, 224, 3), np.float32)
+    offs = np.cumsum((0,) + ASYNC_SUBMITS)
+    # numpy on the host, as a client sends them: the engine packs rounds
+    # into pinned memory and copies each to the card
+    reqs = [xs[a:b] for a, b in zip(offs[:-1], offs[1:])]
+    serve_kw = dict(round_batch=8, max_wait_ms=2.0, max_pending=64,
+                    metrics_window_ms=600_000.0)
+
+    async def drive(eng):
+        async with eng:
+            t0 = time.perf_counter()
+            tickets = [await eng.submit(x, tenant=f"tenant{i % ASYNC_TENANTS}")
+                       for i, x in enumerate(reqs)]
+            # the burst's admission, before the loop packs a round
+            front_door.append(time.perf_counter() - t0)
+            outs = await asyncio.gather(*tickets)
+            # tickets resolve on host delivery, before the device is done
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            return outs, secs, eng.describe(), eng.session.report()
+
+    front_door = []
+
+    def run_engine(eng):
+        """The mix through ``eng`` under one event loop: outputs, host
+        seconds from the first submit to the device's last round, the
+        engine's description and its session's report."""
+        return asyncio.run(asyncio.wait_for(drive(eng), 600))
+
+    def bare(dep):
+        """The same mix through a bare session at round_batch 8."""
+        sess = dep.serve(res_params, round_batch=8)
+        t0 = time.perf_counter()
+        for x in reqs:
+            sess.submit(x)
+        res = sess.results()
+        sess.sync()
+        secs = time.perf_counter() - t0
+        return [y for _t, y in res], secs, sess
+
+    def times(name, make_engine, dep, first):
+        """Host seconds of the mix: five engine runs and five bare
+        sessions, alternating, after the counted run (the first in the
+        process, printed apart: it allocates the pinned buffers); each
+        run's p50/p99 host-delivery latency; then one more of each under
+        the profiler."""
+        eng_runs, bare_s = [], []
+        for _ in range(5):
+            bare_s.append(bare(dep)[1])
+            _o, secs, desc, _r = run_engine(make_engine())
+            eng_runs.append((secs, desc))
+
+        def lat(d):
+            return (d["metrics"]["latency_p50_s"] * 1e3,
+                    d["metrics"]["latency_p99_s"] * 1e3)
+
+        print(f"{name} runs (host clock, ms): the counted engine run "
+              f"{first[0] * 1e3:.3f} (p50/p99 %.3f/%.3f); engine "
+              % lat(first[1])
+              + ", ".join(f"{s * 1e3:.3f}" for s, _d in eng_runs)
+              + "; bare " + ", ".join(f"{s * 1e3:.3f}" for s in bare_s)
+              + "; the engine runs' 13 submits (admission, before the "
+              f"first round), counted run first: "
+              + ", ".join(f"{s * 1e3:.3f}" for s in front_door[-6:]))
+        host_trace(torch, f"{name} engine", lambda: run_engine(
+            make_engine()))
+        host_trace(torch, f"{name} bare session", lambda: bare(dep))
+        return (statistics.median(s for s, _d in eng_runs),
+                statistics.median(bare_s), [lat(d) for _s, d in eng_runs])
+
+    # -- path resnet18-async: Frontier.serve on the card --------------------
+    fast = frontier.best("throughput")
+    dep = fast.deploy(device="cuda")
+    spans = sum(r.route == "pallas" for r in dep.routes)
+    step = dep._steps.get(8)
+    builds0 = step.builds if step is not None else 0
+    rec = paths[ASYNC_PATH] = new_record()
+    kernel.launches = 0
+    eng = frontier.serve(res_params, objective="throughput", device="cuda",
+                         audit="error", **serve_kw)
+    outs, secs, desc, rep = run_engine(eng)
+    rec["launches"] = kernel.launches
+    # checks after the count is read: runs made to compare do not count
+    rounds = desc["metrics"]["total_rounds"]
+    captures = dep._steps[8].builds - builds0
+    if eng.deployment is not dep or rounds != desc["session"][
+            "rounds_served"] or rec["launches"] != spans * (captures + rounds):
+        raise AssertionError(f"{ASYNC_PATH}: {rec['launches']} launches, "
+                             f"{spans} spans, {captures} captures, {rounds} "
+                             f"rounds")
+    if desc["packs_overlapped"] < 1 or not rep.matches_prediction or \
+            rep.images != n_img or not desc["autoscale_armed"]:
+        raise AssertionError(f"{ASYNC_PATH}: {desc} {rep}")
+    for i, (y, x) in enumerate(zip(outs, reqs)):
+        if y.device != dev or not torch.equal(y, dep.run(res_params, x)):
+            raise AssertionError(f"{ASYNC_PATH}: ticket {i} differs from "
+                                 f"Deployment.run")
+    bare_y, _s, bsess = bare(dep)
+    if not desc["compile_count"] == bsess.compile_count == 1 or \
+            not torch.equal(torch.cat(outs), torch.cat(bare_y)):
+        raise AssertionError(f"{ASYNC_PATH}: compile_count "
+                             f"{desc['compile_count']} against the bare "
+                             f"session's {bsess.compile_count}")
+    print(f"{ASYNC_PATH}: frontier.serve -> {fast.plan.quant.boundary} "
+          f"{fast.plan.boundaries} on cuda:0, {n_img} images as "
+          f"{len(reqs)} requests {ASYNC_SUBMITS} from {ASYNC_TENANTS} "
+          f"tenants: {rounds} rounds of 8, packs_overlapped "
+          f"{desc['packs_overlapped']}, {rec['launches']} launches = {spans} "
+          f"spans x ({captures} captures + {rounds} rounds); every ticket "
+          f"equal bit for bit to Deployment.run; compile_count "
+          f"{desc['compile_count']} == the bare session's "
+          f"{bsess.compile_count}; matches_prediction True over "
+          f"{rep.images} images")
+    x8 = torch.from_numpy(xs[:8]).to(dev)
+    hold_spans(torch, kernel, span_plain_call, compare, ASYNC_PATH, resnet,
+               fast.plan, res_params, x8, rec,
+               time_it=lambda a, b, qp, x, kw: time_span(
+                   ASYNC_PATH, resnet, qp, x, a, b, kw, rec))
+    eng_s, bare_s, lat = times(
+        ASYNC_PATH,
+        lambda: frontier.serve(res_params, objective="throughput",
+                               device="cuda", audit="off", **serve_kw),
+        dep, (secs, desc))
+    print(f"time {ASYNC_PATH} ({smi}): the {n_img}-image mix, first submit "
+          f"to the device's last round (host clock, synchronized, median "
+          f"of 5): engine {eng_s * 1e3:.3f} ms, {n_img / eng_s:.2f} "
+          f"images/s, {eng_s * 1e3 / rounds:.3f} ms a round; bare session "
+          f"{bare_s * 1e3:.3f} ms, {n_img / bare_s:.2f} images/s, "
+          f"{bare_s * 1e3 / rounds:.3f} ms a round; engine/bare "
+          f"{eng_s / bare_s:.4f}; host-delivery latency p50/p99 per run "
+          + ", ".join(f"{p50:.3f}/{p99:.3f} ms" for p50, p99 in lat)
+          + f"; one round's spans (CUDA events, one call each): kernel "
+          f"{rec['ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms")
+
+    # -- path resnet18-stap-async: the engine over a ring session ------------
+    sdep = stap_dep
+    plan = sdep.plan
+    ring = sdep.ring(STAP_MICROBATCH)
+    trace0 = ring.trace_count
+    srec = paths[STAP_ASYNC_PATH] = new_record()
+    kernel.launches = 0
+    seng = occam.AsyncEngine(sdep, res_params, **serve_kw)
+    s_outs, s_secs, s_desc, s_rep = run_engine(seng)
+    srec["launches"] = kernel.launches
+    s_rounds = s_desc["session"]["rounds_served"]
+    stages = sum(r.route == "pallas" for r in sdep.routes)
+    # every round full (64 = 8 x 8): round_batch / microbatch live slots
+    # a round, each through every stage
+    live = n_img // s_desc["session"]["microbatch"]
+    if s_rounds != n_img // 8 or srec["launches"] != stages * live \
+            or not s_rep.matches_prediction or s_rep.images != n_img:
+        raise AssertionError(f"{STAP_ASYNC_PATH}: {s_rounds} rounds, "
+                             f"{srec['launches']} launches, {s_rep}")
+    single = plan.place().compile(device=dev)
+    vs_single = max(float((y - single.run(res_params, x)).abs().max())
+                    for y, x in zip(s_outs, reqs))
+    b_y, _s, sbsess = bare(sdep)
+    if vs_single != 0.0 or not torch.equal(torch.cat(s_outs),
+                                           torch.cat(b_y)):
+        raise AssertionError(f"{STAP_ASYNC_PATH}: max|engine - single| "
+                             f"{vs_single!r}")
+    if not s_desc["compile_count"] == sbsess.compile_count == 1 or \
+            ring.trace_count != trace0:
+        raise AssertionError(f"{STAP_ASYNC_PATH}: compile_count "
+                             f"{s_desc['compile_count']} against "
+                             f"{sbsess.compile_count}")
+    print(f"{STAP_ASYNC_PATH}: AsyncEngine over the sum-packed ring "
+          f"(replicas {STAP_REPLICAS}, microbatch {STAP_MICROBATCH}, "
+          f"{sdep.mesh.shape['chip']} positions on cuda:0), the same mix: "
+          f"{s_rounds} rounds, packs_overlapped "
+          f"{s_desc['packs_overlapped']}, {srec['launches']} launches = "
+          f"{stages} stages x {live} live slots; max|engine - "
+          f"single-device run| {vs_single!r}; equal bit for bit to a bare "
+          f"ring session; compile_count {s_desc['compile_count']} == the "
+          f"bare session's {sbsess.compile_count}; matches_prediction True")
+    hold_spans(torch, kernel, span_plain_call, compare, STAP_ASYNC_PATH,
+               resnet, plan, res_params, x8[:STAP_MICROBATCH], srec,
+               time_it=lambda a, b, qp, x, kw: time_span(
+                   STAP_ASYNC_PATH, resnet, qp, x, a, b, kw, srec))
+    s_eng_s, s_bare_s, s_lat = times(
+        STAP_ASYNC_PATH,
+        lambda: occam.AsyncEngine(sdep, res_params, **serve_kw), sdep,
+        (s_secs, s_desc))
+    print(f"time {STAP_ASYNC_PATH} ({smi}): the {n_img}-image mix (host "
+          f"clock, synchronized, median of 5): engine {s_eng_s * 1e3:.3f} "
+          f"ms, {n_img / s_eng_s:.2f} images/s; bare ring session "
+          f"{s_bare_s * 1e3:.3f} ms, {n_img / s_bare_s:.2f} images/s; "
+          f"engine/bare {s_eng_s / s_bare_s:.4f}; host-delivery latency "
+          f"p50/p99 per run "
+          + ", ".join(f"{p50:.3f}/{p99:.3f} ms" for p50, p99 in s_lat)
+          + f"; one slot of {STAP_MICROBATCH} through the stages (CUDA "
+          f"events, one call each): kernel {srec['ms']:.3f} ms, bound "
+          f"{srec['bound_ms']:.4f} ms")
+
+    # -- one damped autoscale switch, with a ticket in flight ----------------
+    rate = 0.7 * fast.throughput
+    target = frontier.for_rate(rate)
+    if target is fast:
+        raise AssertionError("no candidate below the band to switch to")
+    # rounds of 4, a size no earlier phase captured: the engine captures
+    # one graph as it opens and the switch another, mid-serving
+    cached = target._deployments.get(("auto", torch.device("cuda")))
+    had_step = cached is not None and 4 in cached._steps
+
+    def no_dp(*_a, **_k):
+        raise AssertionError("the DP ran during an autoscale switch")
+
+    async def switch(aeng):
+        async with aeng:
+            t1 = await aeng.submit(xs[:11], tenant="tenant0")
+            for _ in range(10_000):
+                await asyncio.sleep(0)
+                if aeng.queue.depth == 3:
+                    break
+            else:
+                raise AssertionError("the first round never dispatched")
+            hits = [aeng.autoscale_step(rate=rate) for _ in range(3)]
+            more = [aeng.autoscale_step(rate=rate) for _ in range(3)]
+            t2 = await aeng.submit(xs[11:16], tenant="tenant1")
+            await aeng.drain()
+            y1, y2 = await t1, await t2
+            torch.cuda.synchronize()
+            return hits, more, y1, y2, aeng.describe()
+
+    saved = partition_mod.optimal_partition
+    partition_mod.optimal_partition = no_dp
+    try:
+        # partials wait for drain here (no SLO), so the split is certain:
+        # 8 lanes of the first ticket on the old deployment (two rounds of
+        # 4), 3 on the new
+        aeng = frontier.serve(res_params, objective="throughput",
+                              device="cuda", audit="error", round_batch=4,
+                              max_pending=64, metrics_window_ms=600_000.0)
+        aeng.autoscale(frontier, windows=3)
+        hits, more, y1, y2, adesc = asyncio.run(asyncio.wait_for(
+            switch(aeng), 600))
+    finally:
+        partition_mod.optimal_partition = saved
+    tdep = target.deploy(device="cuda")
+    if hits != [False, False, True] or any(more) or adesc["switches"] != 1 \
+            or adesc["reconcile_calls"] != 1 or aeng.deployment is not tdep \
+            or adesc["compile_count"] != 1:
+        raise AssertionError(f"autoscale: hits {hits}, then {more}, {adesc}")
+    x11 = torch.from_numpy(xs[:16]).to(dev)
+    if not (torch.equal(y1[:8], dep.run(res_params, x11[:8]))
+            and torch.equal(y1[8:], tdep.run(res_params, x11[8:11]))
+            and torch.equal(y2, tdep.run(res_params, x11[11:16]))):
+        raise AssertionError("autoscale: a ticket differs from the runs of "
+                             "the deployments its rounds went to")
+    print(f"autoscale on the card: windows=3, autoscale_step(rate="
+          f"{rate!r}) x 6 -> {hits + more} (one switch, one reconcile), "
+          f"{fast.plan.quant.boundary} {fast.plan.boundaries} -> "
+          f"{target.plan.quant.boundary} {target.plan.boundaries} "
+          f"(for_rate's pick, the candidate's cached deployment, "
+          f"its graph at round_batch 4 captured "
+          f"{'before' if had_step else 'at the switch'}; "
+          f"the DP disabled throughout); the in-flight ticket of 11 "
+          f"resolved across the switch (8 lanes from the old deployment in "
+          f"two rounds of 4, 3 from the new, each equal bit for bit to that "
+          f"deployment's "
+          f"run), compile_count {adesc['compile_count']}")
+
+    # -- the static audit and the serve lint ---------------------------------
+    reports = [occam.audit(frontier)]
+    reports += [occam.audit(c.placement()) for c in frontier]
+    reports += [occam.audit(dep), occam.audit(sdep), occam.lint_serve()]
+    bad = [r.summary() for r in reports if r.findings]
+    if bad:
+        raise AssertionError(f"audit findings: {bad}")
+    print(f"audit: the frontier ({len(frontier)} candidates), each "
+          f"candidate's placement, the two deployments and the serve lint "
+          f"({reports[-1].subject}): {len(reports)} reports, 0 findings")
 
 
 def lm_serving(torch, seed, compare, flash_log) -> dict:
@@ -1864,10 +2217,13 @@ def main() -> int:
                             time_span, paths, resnet, res_params, xs8)
     sessions(torch, kernel, compare, paths, dep, pol_deps["int8"],
              res_params, xs8, rng, run_ms)
-    frontier_phase(torch, occam, kernel, span_plain_call, compare,
-                   time_span, paths, resnet, res_params, xs8, res_maps)
-    stap_phase(torch, occam, kernel, span_plain_call, compare, time_span,
-               paths, resnet, res_params, rng, smi)
+    frontier = frontier_phase(torch, occam, kernel, span_plain_call,
+                              compare, time_span, paths, resnet, res_params,
+                              xs8, res_maps)
+    stap_dep = stap_phase(torch, occam, kernel, span_plain_call, compare,
+                          time_span, paths, resnet, res_params, rng, smi)
+    async_phase(torch, occam, kernel, span_plain_call, compare, time_span,
+                paths, resnet, res_params, rng, smi, frontier, stap_dep)
 
     flash_rec = lm_serving(torch, args.seed, compare,
                            libs["flash_attention"].with_suffix(".log"))
@@ -1884,6 +2240,8 @@ def main() -> int:
     # batch 8; the calibration's: the profile's stage sum at microbatch 1
     # beside those spans' other times; the STAP pipeline's: its spans,
     # each timed over the run's 16 microbatches of 2 (its 80 launches);
+    # the async engine's: one round's spans at batch 8, and the ring
+    # engine's: one slot's spans at microbatch 2, each span one call;
     # launches: each path's counted run
     print(json.dumps({"kernels": [{
         "name": "fused_span",

@@ -17,6 +17,13 @@ planner derive capacity and placement, then re-rank on measurements::
     sess = dep.serve(params, round_batch=8)       # continuous serving
     sess = sess.scale(arrival_rate=rate)          # frontier-driven autoscale
 
+    engine = frontier.serve(params, round_batch=8)   # async continuous
+    ticket = await engine.submit(xs, tenant="alice") # batching: admission,
+    y = await ticket                              # SLO flushes, live
+                                                  # metrics, damped
+                                                  # autoscaling (occam.serve)
+    occam.audit(frontier).ok                      # static verification
+
 ``plan``/``place`` remain the low-level surface when you already know the
 capacity you want::
 
@@ -41,7 +48,7 @@ engine registers the kernel (route name ``pallas``), ``scan``,
 ``oracle`` and ``interpreted`` engines at import, each but
 ``interpreted`` with a pipeline stage body.
 """
-from . import quant, registry
+from . import quant, registry, serve
 from .deploy import Deployment, ServingStats, Session, Ticket
 from .fleet import Fleet, load_fleet
 from .place import PIPELINE, SINGLE, Placement
@@ -55,24 +62,36 @@ from .registry import (AUTO, BackendError, EngineSpec, RouteContext,
 from .search import (FRONTIER_FORMAT_VERSION, OBJECTIVES, Candidate,
                      Frontier, autoplan, frontier_from_dict,
                      frontier_from_json, load_frontier)
+from .serve import AdmissionError, AsyncEngine, AsyncTicket, Router
 # measured-cost planning: the submodule stays importable as
 # repro_torch.occam.calibrate; the package-level name ``occam.calibrate``
 # is the entry-point FUNCTION (deployment -> CostModel)
 from .calibrate import (ChipAssignment, CostModel, StageProfile,
                         TickTimers, pack_replicas, rescore_frontier)
 from .calibrate.cost_model import calibrate
+# static verification: the submodule stays importable as
+# repro_torch.occam.audit; the package-level name ``occam.audit`` is the
+# entry-point FUNCTION (plan/placement/deployment/frontier/artifact ->
+# AuditReport)
+from .audit import (AUDIT_RULES, AuditError, AuditReport, AuditWarning,
+                    Finding, lint_serve)
+from .audit.api import audit
 
 __all__ = [
-    "AUTO", "FRONTIER_FORMAT_VERSION", "OBJECTIVES", "PIPELINE",
-    "PLAN_FORMAT_VERSION", "POLICIES", "SINGLE",
+    "AUDIT_RULES", "AUTO", "FRONTIER_FORMAT_VERSION", "OBJECTIVES",
+    "PIPELINE", "PLAN_FORMAT_VERSION", "POLICIES", "SINGLE",
+    "AdmissionError", "AsyncEngine", "AsyncTicket",
+    "AuditError", "AuditReport", "AuditWarning",
     "BackendError", "Candidate", "ChipAssignment", "CostModel",
-    "Deployment", "DtypePolicy", "EngineSpec", "Fleet", "Frontier",
-    "Placement", "Plan", "RouteContext", "ServingDefaults",
-    "ServingStats", "Session", "StageProfile", "TickTimers", "Ticket",
-    "autoplan", "backend_names", "calibrate", "frontier_from_dict",
-    "frontier_from_json", "get_engine", "load_fleet", "load_frontier",
-    "load_plan", "pack_replicas", "plan", "plan_from_dict",
-    "plan_from_json", "quant", "register_engine", "registered_engines",
-    "registry", "rescore_frontier", "resolve_policies", "resolve_policy",
-    "resolve_spmd_engine", "unregister_engine",
+    "Deployment", "DtypePolicy", "EngineSpec", "Finding", "Fleet",
+    "Frontier", "Placement", "Plan", "RouteContext", "Router",
+    "ServingDefaults", "ServingStats", "Session", "StageProfile",
+    "TickTimers", "Ticket", "audit", "autoplan",
+    "backend_names", "calibrate", "frontier_from_dict",
+    "frontier_from_json", "get_engine", "lint_serve", "load_fleet",
+    "load_frontier", "load_plan", "pack_replicas", "plan",
+    "plan_from_dict", "plan_from_json", "quant", "register_engine",
+    "registered_engines", "registry", "rescore_frontier",
+    "resolve_policies", "resolve_policy",
+    "resolve_spmd_engine", "serve", "unregister_engine",
 ]

@@ -118,7 +118,8 @@ class Placement:
 
     def compile(self, backend: str = "auto", *,
                 device: str | torch.device | None = None,
-                devices: Sequence | None = None) -> "Deployment":
+                devices: Sequence | None = None,
+                audit: str = "warn") -> "Deployment":
         """Stage 3: lower onto engines -> :class:`~repro_torch.occam
         .Deployment`.
 
@@ -132,8 +133,15 @@ class Placement:
         or every position on the one ``device`` (``"cuda:0"``,
         ``"cpu"``), or else on the visible GPUs, one position each —
         fewer than ``devices_needed`` raises.
+        ``audit`` statically verifies this placement before building
+        (``occam.audit``): ``"warn"`` (default) emits an
+        ``AuditWarning`` on error findings, ``"error"`` raises
+        ``AuditError``, ``"off"`` skips the check.
         """
+        from .audit.api import gate
         from .deploy import Deployment
+
+        gate(self, audit, what="Placement.compile")
 
         if self.kind == SINGLE:
             if devices is not None:
@@ -181,7 +189,8 @@ def place_plan(plan: Plan, *, chips: int | None = None,
                mesh=None, devices=None,
                pipeline: bool | None = None,
                harmonize: bool = False,
-               packing: str = "rect") -> Placement:
+               packing: str = "rect",
+               audit: str = "warn") -> Placement:
     """Implementation of :meth:`Plan.place` (see its docstring)."""
     if packing not in ("rect", "sum"):
         raise ValueError(f"packing must be 'rect' or 'sum', got {packing!r}")
@@ -200,7 +209,7 @@ def place_plan(plan: Plan, *, chips: int | None = None,
         if packing == "sum":
             raise ValueError("packing='sum' applies to pipeline "
                              "placements only")
-        return Placement(plan, SINGLE, microbatch)
+        return _audited(Placement(plan, SINGLE, microbatch), audit)
 
     # Stage latencies: measured if the caller has them, else the MAC model.
     from repro_torch.runtime.stap_pipeline import (default_stap_plan,
@@ -237,8 +246,16 @@ def place_plan(plan: Plan, *, chips: int | None = None,
     # row-major order rebuild it at compile time
     if devices is None and mesh is not None:
         devices = mesh.flat
-    return Placement(plan, PIPELINE, microbatch, stap=stap,
-                     stage_times=times,
-                     devices=(tuple(torch.device(d) for d in devices)
-                              if devices is not None else None),
-                     packing=packing)
+    return _audited(
+        Placement(plan, PIPELINE, microbatch, stap=stap,
+                  stage_times=times,
+                  devices=(tuple(torch.device(d) for d in devices)
+                           if devices is not None else None),
+                  packing=packing), audit)
+
+
+def _audited(placement: Placement, audit: str) -> Placement:
+    from .audit.api import gate
+
+    gate(placement, audit, what="Plan.place")
+    return placement

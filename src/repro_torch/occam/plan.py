@@ -137,7 +137,8 @@ class Plan:
               mesh=None, devices=None,
               pipeline: bool | None = None,
               harmonize: bool = False,
-              packing: str = "rect") -> "Placement":
+              packing: str = "rect",
+              audit: str = "warn") -> "Placement":
         """Commit the plan to devices -> :class:`~repro_torch.occam
         .Placement`.
 
@@ -152,6 +153,10 @@ class Plan:
         ``packing`` (``"rect"`` or ``"sum"``) is a pipeline placement's
         device layout; ``"sum"`` on a single placement raises
         ``ValueError``.
+        ``audit`` statically verifies the resulting placement
+        (``occam.audit``): ``"warn"`` (default) emits an
+        ``AuditWarning`` on error findings, ``"error"`` raises
+        ``AuditError``, ``"off"`` skips the check.
         """
         from .place import place_plan
 
@@ -160,7 +165,8 @@ class Plan:
                           target_period=target_period,
                           max_replicas=max_replicas, microbatch=microbatch,
                           mesh=mesh, devices=devices, pipeline=pipeline,
-                          harmonize=harmonize, packing=packing)
+                          harmonize=harmonize, packing=packing,
+                          audit=audit)
 
     # -- serialization ------------------------------------------------------
 

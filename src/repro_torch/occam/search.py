@@ -31,11 +31,11 @@ embeds its schema-v3 plan). At serve time ``Session.scale(arrival_rate=)``
 / ``Deployment.reconcile(...)`` re-pick from the frontier — autoscaling
 without ever re-running the DP.
 
-This is the reference package's module with two differences: a
-candidate deploys onto an explicit ``device`` (``Candidate.deploy``; a
-pipeline candidate's every mesh position on that device, or one visible
-GPU per position by default), and ``Frontier.serve`` raises until the
-async-engine slice of the port lands.
+This is the reference package's module with one difference: a candidate
+deploys onto an explicit ``device`` (``Candidate.deploy``, and so
+``Frontier.serve``; a pipeline candidate's every mesh position on that
+device, or one visible GPU per position by default) where the reference
+takes a mesh, devices and an interpret flag.
 Everything else, the scoring arithmetic included, is the reference's
 text, so a frontier document written by either package loads in the
 other and re-serializes to the same dict.
@@ -302,15 +302,31 @@ class Frontier:
 
     def serve(self, params, *, objective: str | None = None,
               backend: str = "auto", device=None, autoscale: bool = True,
-              **engine_kw):
-        """Frontier -> async serving in one call: the async engine is the
-        async-engine slice of the port, which has not landed; this raises
-        ``NotImplementedError``. Deploy a candidate and open a session
-        instead (``best(objective).deploy(...).serve(params)``)."""
-        raise NotImplementedError(
-            "Frontier.serve wraps the best candidate in an async engine, "
-            "the async-engine slice of the port, which has not landed; use "
-            "best(objective).deploy(...).serve(params)")
+              audit: str = "warn", **engine_kw):
+        """Frontier -> async serving in one call: deploy the best
+        candidate on ``device`` (as ``Candidate.deploy``: ``None`` is the
+        GPU) and wrap it in an ``occam.serve.AsyncEngine``.
+
+        ``autoscale=True`` (default) arms the engine's damped
+        autoscaler against THIS frontier, so observed arrival rate
+        drives ``Deployment.reconcile`` re-picks at serve time.
+        ``audit`` statically verifies the winning candidate before any
+        compile (``occam.audit``): ``"warn"`` (default) emits an
+        ``AuditWarning`` on error findings, ``"error"`` raises
+        ``AuditError``, ``"off"`` skips the check.
+        ``engine_kw`` passes through to the engine (``max_pending``,
+        ``max_wait_ms``, ``round_batch``, metrics windows, ...); await
+        ``engine.submit(images, tenant=...)`` tickets from there.
+        """
+        from .audit.api import gate
+        from .serve import AsyncEngine
+
+        gate(self.best(objective), audit, what="Frontier.serve")
+        dep = self.deploy(objective, backend, device=device)
+        engine = AsyncEngine(dep, params, **engine_kw)
+        if autoscale:
+            engine.autoscale(self)
+        return engine
 
     # -- serialization ------------------------------------------------------
 

@@ -281,8 +281,10 @@ def test_scale_and_reconcile_on_cpu_hand_over_between_policies():
 
 def test_pipeline_picks_and_frontier_serve_raise():
     """Pipeline candidates deploy (every mesh position on the CPU here),
-    and reconcile hands a single-device deployment over to one; only
-    ``Frontier.serve`` still raises (the async engine is not ported)."""
+    and reconcile hands a single-device deployment over to one;
+    ``Frontier.serve`` runs on the GPU unless told otherwise, so with no
+    GPU visible it raises, and with ``device="cpu"`` it returns the
+    async engine on the best candidate, armed to autoscale."""
     net = _vgg()
     frontier = occam.autoplan(net, occam.Fleet(chips=6,
                                                vmem_elems=CAPACITY))
@@ -299,8 +301,13 @@ def test_pipeline_picks_and_frontier_serve_raise():
     xs = _images(net, 3)
     assert torch.allclose(fdep.run(_params(net), xs),
                           dep.run(_params(net), xs), rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="async-engine"):
-        frontier.serve(_params(net))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device="):
+            frontier.serve(_params(net))
+    eng = frontier.serve(_params(net), device="cpu")
+    assert isinstance(eng, occam.AsyncEngine)
+    assert eng.deployment is frontier.best().deploy(device="cpu")
+    assert eng.describe()["autoscale_armed"]
     assert timers.measure_hop_seconds(fdep.ring(1)) > 0
 
 

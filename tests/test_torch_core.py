@@ -23,24 +23,40 @@ COPIES = [
     "core/stap.py", "occam/calibrate/cost_model.py",
     "occam/calibrate/placement.py", "occam/calibrate/rescore.py",
     "configs/__init__.py", "configs/base.py",
+    "occam/audit/report.py", "occam/audit/invariants.py",
+    "occam/audit/routing.py", "occam/audit/schedule.py",
+    "occam/audit/api.py", "occam/audit/__init__.py",
+    "occam/audit/concurrency.py", "occam/audit/__main__.py",
+    "occam/serve/queue.py", "occam/serve/metrics.py",
+    "occam/serve/router.py", "occam/serve/__init__.py",
 ] + sorted(f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob(
     "*.py") if p.name not in ("__init__.py", "base.py"))
 
-# the one line of a copy that names its own package in a string
-RENAMED = {"configs/__init__.py": ('f"repro.configs.{mod}"',
-                                   'f"repro_torch.configs.{mod}"')}
+# the lines of a copy that must name the port: its own package in a
+# string, the port's source tree in a locus, and torch's device sync
+# beside JAX's among the calls the serve lint (OCM050) flags in an
+# ``async def``
+RENAMED = {
+    "configs/__init__.py": [('f"repro.configs.{mod}"',
+                             'f"repro_torch.configs.{mod}"')],
+    "occam/audit/__main__.py": [('prog="python -m repro.occam.audit"',
+                                 'prog="python -m repro_torch.occam.audit"')],
+    "occam/audit/concurrency.py": [
+        ('idx = p.find("src/repro/")', 'idx = p.find("src/repro_torch/")'),
+        ('_BLOCKING_ATTRS = ("block_until_ready", "pump")',
+         '_BLOCKING_ATTRS = ("block_until_ready", "synchronize", "pump")')],
+}
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_matches_reference_source(rel):
     """Each copied module is the reference's text with only its absolute
-    ``repro.`` imports renamed to ``repro_torch.`` (and, in
-    ``configs/__init__.py``, the package named in its import string)."""
+    ``repro.`` imports renamed to ``repro_torch.`` (and the lines
+    ``RENAMED`` states)."""
     ref = (SRC / "repro" / rel).read_text()
     port = (SRC / "repro_torch" / rel).read_text()
     ref = ref.replace("from repro.", "from repro_torch.")
-    if rel in RENAMED:
-        old, new = RENAMED[rel]
+    for old, new in RENAMED.get(rel, ()):
         assert ref.count(old) == 1
         ref = ref.replace(old, new)
     assert port == ref
@@ -59,9 +75,10 @@ def _sources(path: Path) -> dict[str, str]:
                                      getattr(node, "decorator_list", [])])
         return "".join(lines[first - 1:node.end_lineno])
 
+    defs = (ast.FunctionDef, ast.AsyncFunctionDef)
     out = {}
     for node in ast.parse(text).body:
-        if isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+        if isinstance(node, (ast.ClassDef,) + defs):
             out[node.name] = source(node)
         elif isinstance(node, (ast.Assign, ast.AnnAssign)):
             targets = node.targets if isinstance(node, ast.Assign) \
@@ -70,7 +87,7 @@ def _sources(path: Path) -> dict[str, str]:
                 out[target.id] = source(node)
         if isinstance(node, ast.ClassDef):
             for item in node.body:
-                if isinstance(item, ast.FunctionDef):
+                if isinstance(item, defs):
                     out[f"{node.name}.{item.name}"] = source(item)
     return out
 
@@ -91,10 +108,12 @@ def test_timer_classes_match_reference_source(name):
     assert port[name] == ref[name]
 
 
-# The planning frontier and the STAP stage plan: every definition the
-# port keeps as the reference's text. search.py differs only in
-# Candidate.placement / Candidate.deploy (an explicit device) and
-# Frontier.serve (the async engine is not ported).
+# The planning frontier, the STAP stage plan and the async engine: every
+# definition the port keeps as the reference's text. search.py differs
+# only in Candidate.placement / Candidate.deploy / Frontier.serve (an
+# explicit device); serve/engine.py only where it packs and joins tensors.
+ENGINE_OWN = {"AsyncEngine", "AsyncEngine.submit", "AsyncEngine._stage",
+              "AsyncEngine._deliver"}
 TWINS = [("occam/search.py", name) for name in (
     "FRONTIER_FORMAT_VERSION", "FRONTIER_DOCUMENT_KEYS", "OBJECTIVES",
     "_det", "_OBJECTIVE_KEYS", "Candidate.throughput",
@@ -108,7 +127,10 @@ TWINS = [("occam/search.py", name) for name in (
     "_score", "autoplan")] + [
     ("runtime/stap_pipeline.py", name) for name in (
         "PayloadSpec", "payload_spec", "StageSpec", "plan_span_stages",
-        "model_stage_times")]
+        "model_stage_times")] + [
+    ("occam/serve/engine.py", name) for name in sorted(
+        set(_sources(SRC / "repro" / "occam/serve/engine.py"))
+        - ENGINE_OWN)]
 
 
 @pytest.mark.parametrize("rel,name", TWINS,
@@ -128,6 +150,20 @@ def test_search_twin_differs_only_where_stated():
     differ = {k for k in port if port[k] != ref[k]}
     assert differ == {"Candidate", "Candidate.placement", "Candidate.deploy",
                       "Frontier", "Frontier.serve"}
+
+
+def test_engine_twin_differs_only_where_stated():
+    """The port's async engine defines what the reference's does, with
+    the same methods (so the serve lint sees the same shape), and differs
+    only in how it takes, packs and joins images: ``submit`` (numpy or a
+    tensor, the dtype checked at the front door), ``_stage`` (pinned
+    host packing and a copy to the deployment's device) and
+    ``_deliver`` (``torch.cat``)."""
+    rel = "occam/serve/engine.py"
+    port = _sources(SRC / "repro_torch" / rel)
+    ref = _sources(SRC / "repro" / rel)
+    assert set(port) == set(ref)
+    assert {k for k in port if port[k] != ref[k]} == ENGINE_OWN
 
 
 CAPACITIES = [786_432, 3_145_728, 12_582_912]

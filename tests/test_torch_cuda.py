@@ -229,6 +229,90 @@ def test_session_on_gpu_equals_run(cuda, policy):
     assert rep.matches_prediction and rep.matches_prediction_bytes
 
 
+def _engine_mix(engine, xs, tenants=3):
+    """Submit ``xs`` to ``engine`` from ``tenants`` tenants in turn, under
+    one ``asyncio.run`` with a time limit; the tickets' outputs and the
+    engine's description."""
+    import asyncio
+
+    async def drive():
+        async with engine:
+            tickets = [await engine.submit(x, tenant=f"t{i % tenants}")
+                       for i, x in enumerate(xs)]
+            outs = await asyncio.gather(*tickets)
+            return outs, engine.describe()
+
+    return asyncio.run(asyncio.wait_for(drive(), 300))
+
+
+@pytest.mark.cuda
+def test_frontier_serve_on_gpu_equals_run(cuda):
+    """``Frontier.serve`` on ``cuda:0`` under a mixed multi-tenant load:
+    every ticket's output equals ``Deployment.run`` of the same images
+    bit for bit, the engine's ``compile_count`` equals a bare session's
+    on the same mix (both 1: one CUDA graph), and the kernel launches
+    once per span per dispatched round (plus the capture's warm-up)."""
+    net = chain("res", [(C, 3, 2, 1, 4), (P, 3, 2, 1, 0), (C, 3, 1, 1, 4),
+                        (C, 3, 1, 1, 4), (C, 3, 2, 1, 8), (C, 3, 1, 1, 8)],
+                in_h=16, in_w=16, in_ch=3, residual_edges=((2, 4), (4, 6)))
+    rng = np.random.default_rng(4)
+    params = numpy_params(net, rng)
+    frontier = occam.autoplan(net, occam.Fleet(chips=1, vmem_elems=700))
+    sizes = [4, 1, 5, 3, 4, 2]
+    xs = [rng.standard_normal((n, 16, 16, 3), np.float32) for n in sizes]
+    before = kernel.launches
+    eng = frontier.serve(params, device="cuda:0", round_batch=4,
+                         max_wait_ms=2.0, metrics_window_ms=600_000.0,
+                         audit="error")
+    dep = eng.deployment
+    spans = sum(r.route == "pallas" for r in dep.routes)
+    assert spans > 0 and dep.device == torch.device("cuda", 0)
+    outs, desc = _engine_mix(eng, xs)
+    torch.cuda.synchronize()
+    rounds = desc["metrics"]["total_rounds"]
+    assert rounds == desc["session"]["rounds_served"] >= -(-sum(sizes) // 4)
+    assert kernel.launches - before == spans * (1 + rounds)
+    for y, x in zip(outs, xs):
+        assert y.device == torch.device("cuda", 0)
+        assert torch.equal(y, dep.run(params, x))
+    sess = dep.serve(params, round_batch=4)
+    for x in xs:
+        sess.submit(x)
+    sess.results()
+    assert desc["compile_count"] == sess.compile_count == 1
+    assert sess.report().matches_prediction
+
+
+@pytest.mark.cuda
+def test_async_engine_on_a_gpu_ring_session(cuda):
+    """The async engine over a STAP ring session with every mesh position
+    on ``cuda:0``: each ticket equals a bare ring session's lanes for the
+    same images bit for bit (and the single-device ``run`` within fp32
+    1e-4), with the bare session's one tick build."""
+    net, capacity, _rect, packed = PIPE_NETS["vgg_mini"]
+    rng = np.random.default_rng(5)
+    params = numpy_params(net, rng)
+    plan = occam.plan(net, capacity)
+    dep = plan.place(replicas=packed, microbatch=2,
+                     packing="sum").compile(device="cuda:0")
+    sizes = [3, 12, 1, 7]
+    xs = [rng.standard_normal((n,) + net.map_shape(0), np.float32)
+          for n in sizes]
+    outs, desc = _engine_mix(occam.AsyncEngine(dep, params,
+                                               max_wait_ms=2.0), xs)
+    sess = dep.serve(params)
+    bare = []
+    for x in xs:
+        sess.submit(x)
+        bare += [v for _t, v in sess.results()]
+    assert desc["compile_count"] == sess.compile_count == 1
+    want = plan.place().compile().run(params, np.concatenate(xs))
+    for y, b in zip(outs, bare):
+        assert y.device == torch.device("cuda", 0)
+        assert torch.equal(y, b)
+    torch.testing.assert_close(torch.cat(outs), want, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_capture_holds_the_garbage_collector_off(cuda, monkeypatch):
     """A deployment and its captured step form a reference cycle, so a

@@ -34,12 +34,45 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.models.mamba",
                 "repro_torch.launch.serve",
                 "repro_torch.occam.quant.casting",
-                "repro_torch.occam.calibrate.timers"):
+                "repro_torch.occam.calibrate.timers",
+                "repro_torch.occam.audit", "repro_torch.occam.audit.api",
+                "repro_torch.occam.audit.concurrency",
+                "repro_torch.occam.audit.__main__",
+                "repro_torch.occam.serve", "repro_torch.occam.serve.engine",
+                "repro_torch.occam.serve.router"):
         assert mod in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'repro'\n"
+        "             or m.startswith('repro.'))\n"
+        "print(len(bad), bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0 []", out.stdout
+
+
+def test_occam_exports_audit_and_serve_without_jax():
+    """``import repro_torch.occam`` alone brings the audit and the async
+    engine, under the reference's names, and neither JAX nor ``repro``."""
+    code = (
+        "import importlib, sys\n"
+        "from repro_torch import occam\n"
+        "a = importlib.import_module('repro_torch.occam.audit')\n"
+        "s = importlib.import_module('repro_torch.occam.serve')\n"
+        "names = ['audit', 'AsyncEngine', 'AsyncTicket', 'Router',\n"
+        "         'lint_serve', 'AdmissionError', 'AUDIT_RULES',\n"
+        "         'AuditError', 'AuditReport', 'AuditWarning', 'Finding',\n"
+        "         'serve']\n"
+        "assert all(n in occam.__all__ and hasattr(occam, n)\n"
+        "           for n in names)\n"
+        "assert callable(occam.audit) and occam.serve is s\n"
+        "assert occam.lint_serve is a.lint_serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
