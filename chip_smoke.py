@@ -184,6 +184,37 @@ Llama path's tensors are freed and the peak-memory counter reset:
    step; peak device memory; a ``torch.profiler`` breakdown of one
    prefill and one decode step.
 
+Then, after the Mamba path's tensors are freed and the peak-memory
+counter reset, the MoE and encoder-decoder serving paths, each at its
+full published width (fp32, random weights from ``--seed``):
+
+11. Flash kernel vs plain at the new paths' prefill shapes, held to
+   max|kernel - plain| <= 1e-3 * max|plain|: OLMoE's q/k/v
+   (4, 16, 1024, 128) causal and a ragged (1, 16, 200, 128) prompt;
+   SeamlessM4T's encoder (4, 16, 1024, 64) non-causal and its
+   cross-attention, q (4, 16, 1024, 64) against the encoder's k/v
+   (4, 16, 1024, 64), non-causal.
+12. Path ``olmoe-1b-7b-serve``: OLMoE-1B-7B (16 layers x 2048, 16/16
+   heads of 128, an MoE FFN of 64 experts top-8 of 1024 in every layer,
+   vocab 50,304; the parameter count asserted) through ``build_model`` and
+   ``generate``, the same three requests, exactly 16 flash launches per
+   prefill (48; decode adds none); the first request's prefill logits
+   against the ``attn_impl="chunked"`` prefill within 1e-3 * max|chunked|,
+   with the count of (token, layer) routing decisions that differ between
+   the two (``moe._route`` wrapped here); then times as in phase 7 (the
+   kernel at d = 128, its plain version, ``scaled_dot_product_attention``,
+   the bound, the launch shape), the prefill, a decode step, peak memory,
+   and a profile of one prefill and one decode step that also sums the
+   device time of the experts' dispatch operators (``index_select``,
+   ``index_add_``, ``scatter_``, ...) against their batched GEMMs.
+13. Path ``seamless-m4t-large-v2-serve``: the SeamlessM4T-Large v2 text
+   backbone (24 encoder + 24 decoder layers x 1024, 16/16 heads of 64,
+   d_ff 8192, vocab 256,206 padded to 256,208) after OLMoE's tensors are
+   freed, the same requests with ``enc_embeds`` of the prompt's length:
+   exactly 72 flash launches per prefill (24 non-causal encoder, 24
+   causal decoder, 24 non-causal cross-attention; 216 in all); logits
+   and times as in phase 12, each kind of flash call timed.
+
 The line before the last is the kernels' JSON summary, one record per
 path with that path's launches, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible GPU, or outside a
@@ -301,6 +332,34 @@ SSD_STATE_CASE = (2, 100, 4, 2, 32, 16, 32)
 # Mamba2-1.3B's scan at the slice's prefill shapes: (B, T, H, G, P, N)
 SSD_FULL_WIDTH = [(4, 1024, 64, 1, 64, 128), (1, 200, 64, 1, 64, 128)]
 MAMBA_PATH = "mamba2-1.3b-serve"
+# phases 11-13: OLMoE-1B-7B and the SeamlessM4T-Large v2 text backbone,
+# each path's flash-attention calls at its prefill shapes,
+# (B, Hq, Hkv, Sq, Skv, D, causal)
+OLMOE_PATH = "olmoe-1b-7b-serve"
+SEAMLESS_PATH = "seamless-m4t-large-v2-serve"
+# every shape the three ``LM_REQUESTS``' prefills give the kernel; a path's
+# counted run fails if it makes a call at a shape not listed here
+FLASH_NEW_SHAPES = {
+    OLMOE_PATH: [(b, 16, 16, s, s, 128, True) for b, s, _ in LM_REQUESTS],
+    # non-causal: the encoder's self-attention and the cross-attention (q
+    # from the decoder's s tokens, k/v from the encoder's s frames, the
+    # same shape); causal: the decoder's self-attention
+    SEAMLESS_PATH: [(b, 16, 16, s, s, 64, causal)
+                    for b, s, _ in LM_REQUESTS for causal in (False, True)],
+}
+# each path's flash calls in one prefill of the first request, by kind:
+# (kind, shape, calls)
+OLMOE_CALLS = [("causal", (4, 16, 16, 1024, 1024, 128, True), 16)]
+SEAMLESS_CALLS = [("encoder", (4, 16, 16, 1024, 1024, 64, False), 24),
+                  ("decoder", (4, 16, 16, 1024, 1024, 64, True), 24),
+                  ("cross", (4, 16, 16, 1024, 1024, 64, False), 24)]
+# the modules' parameter counts: the config's count (which leaves out the
+# RMSNorm vectors) plus the norms
+OLMOE_PARAMS = 6_919_028_736 + 16 * 2 * 2048 + 2048
+SEAMLESS_PARAMS = 2_034_663_424 + 24 * 2 * 1024 + 24 * 3 * 1024 + 2 * 1024
+# profiler operators that move tokens to and from the experts' slots
+DISPATCH_OPS = ("aten::index_select", "aten::index_add_", "aten::scatter_",
+                "aten::gather", "aten::topk", "aten::cumsum")
 
 
 def he_params(net, rng):
@@ -428,10 +487,13 @@ def time_ms(torch, fn, reps=5, calls=1):
     return statistics.median(times)
 
 
-def trace_breakdown(torch, name, fn, top=8):
+def trace_breakdown(torch, name, fn, top=8, ops=None):
     """Profile one call of ``fn`` (after a warm-up): print the host-clock
     time, the device's busy time and idle share, and the ``top`` kernels
-    by device time."""
+    by device time. With ``ops`` (operator names), also the device time of
+    the kernels those operators launched against ``aten::bmm``'s (the
+    experts' batched GEMMs) and ``aten::mm``'s, and the ``top`` operators
+    by the device time of the kernels they launched."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -452,6 +514,21 @@ def trace_breakdown(torch, name, fn, top=8):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.self_device_time_total / 1e3 / busy_ms * 100:6.2f}% "
               f"x{e.count:<5d} {e.key[:90]}")
+    if ops is None:
+        return
+    launched = {e.key: e.self_device_time_total / 1e3
+                for e in prof.key_averages()
+                if not str(e.device_type).endswith("CUDA")
+                and e.self_device_time_total > 0}
+    groups = [("dispatch " + "/".join(o.split("::")[1] for o in ops),
+               sum(launched.get(o, 0.0) for o in ops)),
+              ("expert GEMMs (aten::bmm)", launched.get("aten::bmm", 0.0)),
+              ("dense GEMMs (aten::mm)", launched.get("aten::mm", 0.0))]
+    print("  by operator: " + "; ".join(
+        f"{label} {ms:.3f} ms = {ms / busy_ms * 100:.2f}%"
+        for label, ms in groups))
+    for key, ms in sorted(launched.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {ms:9.3f} ms {ms / busy_ms * 100:6.2f}% {key[:80]}")
 
 
 def host_trace(torch, name, fn, top=10):
@@ -1922,6 +1999,248 @@ def mamba_serving(torch, seed, compare, ssd_log) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+def flash_new_shapes(torch, seed, compare) -> dict:
+    """Phase 11: the flash kernel against its plain version at the new
+    paths' full-width prefill shapes. Returns each path's worst error."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_plain_call)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 11)
+    worst = {}
+    for path, cases in FLASH_NEW_SHAPES.items():
+        worst[path] = 0.0
+        for case in cases:
+            b, hq, hkv, sq, sk, d, causal = case
+            q, k, v = [torch.randn(shape, generator=gen).to(dev)
+                       for shape in ((b, hq, sq, d), (b, hkv, sk, d),
+                                     (b, hkv, sk, d))]
+            got = fkernel.flash_attention_cuda_call(q, k, v, causal=causal)
+            want = flash_attention_plain_call(q, k, v, causal=causal)
+            err, scale = compare(f"flash {path} {case}", got, want,
+                                 rel=1e-3)
+            worst[path] = max(worst[path], err)
+            print(f"flash {path} q {(b, hq, sq, d)} k/v {(b, hkv, sk, d)} "
+                  f"{'causal' if causal else 'non-causal'}: "
+                  f"max|kernel-plain| {err:.3e} (max|plain| {scale:.3e}, "
+                  f"band 1e-3 x max|plain|)")
+    torch.cuda.synchronize()
+    return worst
+
+
+def routed_serving(torch, seed, compare, path, arch, width, n_params_want,
+                   calls, flash_err) -> dict:
+    """Phases 12 and 13: ``arch`` served at full width through
+    ``generate`` (the three ``LM_REQUESTS``; an encoder-decoder's prompt
+    holds ``enc_embeds`` of the prompt's length), the flash launches
+    counted per prefill (``calls``: (kind, shape, calls) of one prefill)
+    and every shape the kernel ran at found in ``FLASH_NEW_SHAPES``,
+    request 1's prefill logits against the chunked prefill (with the MoE
+    routing decisions of both counted), then times: each kind of flash
+    call (kernel, plain, ``scaled_dot_product_attention``, bound, launch
+    shape; the kernel held against plain on the timed inputs), the prefill, a decode step, peak memory and a profile of one
+    prefill and one decode step. Returns the path's flash record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_plain_call)
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model, make_batch
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    got_width = (cfg.n_layers, cfg.n_enc_layers, cfg.d_model, cfg.n_heads,
+                 cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab,
+                 None if cfg.moe is None else
+                 (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert))
+    if got_width != width:
+        raise AssertionError(f"{arch} config {got_width}")
+    per_prefill = sum(n for _, _, n in calls)
+    api = build_model(cfg, dtype=torch.float32)
+    if api.device.type != "cuda":
+        raise AssertionError(f"model on {api.device}")
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.parameters())
+    if n_params != n_params_want:
+        raise AssertionError(f"{arch}: {n_params} parameters")
+    print(f"{path}: {n_params} parameters (fp32, {n_params * 4 / 1e9:.3f} "
+          f"GB; the config's count without the norm vectors "
+          f"{cfg.param_count()[0]}) drawn in {time.perf_counter() - t0:.2f} "
+          f"s; {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers x "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, experts {width[-1]}, vocab "
+          f"{cfg.vocab} (padded {cfg.vocab_padded})")
+    prompts = []
+    for i, (b, s, _) in enumerate(LM_REQUESTS):
+        prompt = make_batch(cfg, b, s, device=dev,
+                            generator=torch.Generator().manual_seed(
+                                seed + 1 + i))
+        prompt.pop("labels")
+        prompts.append(prompt)
+    ran = set()  # (B, Hq, Hkv, Sq, Skv, D, causal) of every kernel call
+    cuda_call = fops.flash_attention_cuda_call
+
+    def recording_call(q, k, v, *, causal=True, **kw):
+        ran.add((*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                 q.shape[3], causal))
+        return cuda_call(q, k, v, causal=causal, **kw)
+
+    fops.flash_attention_cuda_call = recording_call
+    fkernel.launches = 0
+    outs = []
+    try:
+        for prompt, (b, s, g) in zip(prompts, LM_REQUESTS):
+            before = fkernel.launches
+            out = generate(api, params, prompt, g)
+            toks = out["tokens"]
+            if fkernel.launches - before != per_prefill:
+                raise AssertionError(f"{path} request {b} x {s}: "
+                                     f"{fkernel.launches - before} launches")
+            if tuple(toks.shape) != (b, g) or int(toks.min()) < 0 \
+                    or int(toks.max()) >= cfg.vocab_padded:
+                raise AssertionError(f"{path} request {b} x {s}: tokens "
+                                     f"{tuple(toks.shape)}")
+            outs.append(out)
+            print(f"{path} request batch {b} prompt {s} gen {g}: "
+                  f"{per_prefill} launches, tokens {tuple(toks.shape)}, "
+                  f"prefill_s {out['prefill_s']:.6f}, decode_tok_per_s "
+                  f"{out['decode_tok_per_s']:.3f}")
+    finally:
+        fops.flash_attention_cuda_call = cuda_call
+    launches = fkernel.launches
+    if launches != per_prefill * len(LM_REQUESTS):
+        raise AssertionError(f"{path}: {launches} launches")
+    unchecked = ran - set(FLASH_NEW_SHAPES[path])
+    if unchecked:
+        raise AssertionError(f"{path}: kernel calls at shapes phase 11 did "
+                             f"not hold against plain: {sorted(unchecked)}")
+    print(f"{path}: the kernel ran at {len(ran)} shapes (B, Hq, Hkv, Sq, "
+          f"Skv, D, causal) {sorted(ran)}, each held against plain in "
+          f"phase 11")
+
+    (b, s, g), prompt = LM_REQUESTS[0], prompts[0]
+    chunked = build_model(cfg, dtype=torch.float32, attn_impl="chunked")
+    routed = []  # each MoE layer's top-k sets, flash prefill then chunked
+    route = moe._route
+
+    def recording_route(x, router, e, k):
+        out = route(x, router, e, k)
+        routed.append(out[1].sort(dim=-1).values)
+        return out
+
+    moe._route = recording_route
+    try:
+        logits, _ = api.prefill(params, prompt, s + g)
+        want, _ = chunked.prefill(params, prompt, s + g)
+    finally:
+        moe._route = route
+    if tuple(logits.shape) != (b, 1, cfg.vocab_padded):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    half = len(routed) // 2
+    flips = sum(int((x != y).any(dim=-1).sum())
+                for x, y in zip(routed[:half], routed[half:]))
+    decisions = sum(int(x.shape[0]) for x in routed[:half])
+    routing = (f"; routing decisions (token, MoE layer) that differ: "
+               f"{flips} of {decisions}" if routed else "")
+    err, scale = compare(f"{path} prefill logits, flash vs chunked", logits,
+                         want, rel=1e-3)
+    ref_toks = generate(chunked, params, prompt, g)["tokens"]
+    same = (outs[0]["tokens"] == ref_toks).int().cumprod(dim=1).sum(dim=1)
+    print(f"{path} request 1 prefill logits: max|flash-chunked| {err:.3e} "
+          f"(max|chunked| {scale:.3e}, band 1e-3 x max|chunked|){routing}; "
+          f"leading greedy tokens equal to the chunked path's, per row: "
+          f"{same.tolist()} of {g}")
+    del routed, chunked
+
+    gen = torch.Generator().manual_seed(seed + 12)
+    rec = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               t_ops=0.0, t_mem=0.0)
+    for kind, case, n in calls:
+        bq, hq, hkv, sq, sk, d, causal = case
+        q, k, v = [torch.randn(shape, generator=gen).to(dev)
+                   for shape in ((bq, hq, sq, d), (bq, hkv, sk, d),
+                                 (bq, hkv, sk, d))]
+        k_ms = time_ms(torch, lambda: fkernel.flash_attention_cuda_call(
+            q, k, v, causal=causal))
+        k_n_ms = time_ms(torch, lambda: fkernel.flash_attention_cuda_call(
+            q, k, v, causal=causal), calls=n)
+        shape_k = dict(fkernel.last_launch)
+        p_ms = time_ms(torch, lambda: flash_attention_plain_call(
+            q, k, v, causal=causal))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+
+        plain = flash_attention_plain_call(q, k, v, causal=causal)
+        k_err, _ = compare(f"{path} {kind}: kernel vs plain",
+                           fkernel.flash_attention_cuda_call(
+                               q, k, v, causal=causal), plain, rel=1e-3)
+        flash_err = max(flash_err, k_err)
+        compare(f"{path} {kind}: scaled_dot_product_attention vs plain",
+                sdpa(), plain, rel=1e-3)
+        del plain
+        l_ms = time_ms(torch, sdpa)
+        flop, nbytes, bound, bound_by, fp32_bound = flash_cost(*case)
+        if shape_k["ctas_per_sm"] < 1:
+            raise AssertionError(f"{path} {kind}: no CTA fits an SM")
+        print(f"time {path} flash {kind} {case[:-1]} "
+              f"{'causal' if causal else 'non-causal'} fp32: kernel "
+              f"{k_ms:.4f} ms (one call; mean of {n} calls back to back, "
+              f"as in a prefill: {k_n_ms:.4f} ms), plain {p_ms:.4f} ms, "
+              f"scaled_dot_product_attention {l_ms:.4f} ms; "
+              f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB, bound "
+              f"{bound:.4f} ms ({bound_by}, 3xTF32 at 495 TFLOP/s), kernel "
+              f"at {bound / k_ms * 100:.2f}% of bound; fp32 CUDA-core bound "
+              f"{fp32_bound:.4f} ms")
+        print(f"  launch flash {kind}: {shape_k['ctas']} CTAs x "
+              f"{shape_k['threads']} threads, {shape_k['smem']} bytes of "
+              f"dynamic shared memory, {shape_k['ctas_per_sm']} CTAs "
+              f"resident per SM, K/V by "
+              f"{16 if shape_k['copies16'] else 4}-byte cp.async")
+        rec["ms"] += n * k_ms
+        rec["plain_ms"] += n * p_ms
+        rec["library_ms"] += n * l_ms
+        rec["bound_ms"] += n * bound
+        rec["t_ops"] += n * 3 * flop / TF32_TFLOPS * 1e3
+        rec["t_mem"] += n * nbytes / HBM_BYTES_PER_S * 1e3
+        del q, k, v
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = time_ms(torch, lambda: api.prefill(params, prompt, s + g))
+    _, caches = api.prefill(params, prompt, s + g)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    decode_ms = time_ms(torch, lambda: api.decode_step(params, tok, caches,
+                                                       s))
+    print(f"time {path} request 1 (batch {b}, prompt {s}): prefill "
+          f"{prefill_ms:.3f} ms (CUDA events, median of 5), of which "
+          f"{per_prefill} kernel calls {rec['ms']:.3f} ms = "
+          f"{rec['ms'] / prefill_ms * 100:.2f}%; decode step "
+          f"{decode_ms:.3f} ms, {b / decode_ms * 1e3:.2f} tokens/s")
+    print(f"peak device memory during the timed prefill and decode "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    ops = DISPATCH_OPS if cfg.moe is not None else None
+    trace_breakdown(torch, f"{path} prefill",
+                    lambda: api.prefill(params, prompt, s + g), ops=ops)
+    trace_breakdown(torch, f"{path} decode step",
+                    lambda: api.decode_step(params, tok, caches, s), ops=ops)
+    # times: one prefill of the first request, all its flash calls
+    return {"name": "flash_attention", "path": path, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:111",
+            "launches": launches, "max_abs_err": flash_err,
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": ("operations" if rec["t_ops"] >= rec["t_mem"]
+                         else "bytes"),
+            "library_ms": rec["library_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2232,6 +2551,21 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ssd_rec = mamba_serving(torch, args.seed, compare,
                             libs["ssd_scan"].with_suffix(".log"))
+    gc.collect()  # the Mamba path's tensors go before OLMoE's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_err = flash_new_shapes(torch, args.seed, compare)
+    olmoe_rec = routed_serving(
+        torch, args.seed, compare, OLMOE_PATH, "olmoe-1b-7b",
+        (16, 0, 2048, 16, 16, 128, 0, 50304, (64, 8, 1024)), OLMOE_PARAMS,
+        OLMOE_CALLS, flash_err[OLMOE_PATH])
+    gc.collect()  # OLMoE's tensors go before SeamlessM4T's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seamless_rec = routed_serving(
+        torch, args.seed, compare, SEAMLESS_PATH, "seamless-m4t-large-v2",
+        (24, 24, 1024, 16, 16, 64, 8192, 256206, None), SEAMLESS_PARAMS,
+        SEAMLESS_CALLS, flash_err[SEAMLESS_PATH])
 
     # fused-span times: one batch-8 run of ResNet-18's five spans, one
     # batch-4 run of AlexNet's span, one batch-8 run of each policy plan's
@@ -2256,7 +2590,8 @@ def main() -> int:
         "bound_ms": rec["bound_ms"],
         "bound_by": "operations" if rec["t_ops"] >= rec["t_mem"] else "bytes",
         "library_ms": rec["library_ms"],
-    } for name, rec in paths.items()] + [flash_rec, ssd_rec]}))
+    } for name, rec in paths.items()] + [flash_rec, ssd_rec, olmoe_rec,
+                                         seamless_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@ CNN params keep the reference package's structure: a list aligned with
 ``net.layers`` of ``{"w": (k, k, Cin, Cout), "b": (Cout,)}`` per conv and
 ``{}`` per pool — plain dicts, not ``nn.Module``s, because the span
 engine slices them by layer index. LM params become the port's
-``DecoderParams``: the reference's stacked periods unstacked into one
-layer each, every weight in the same (in, out) layout. Inputs may be
+``DecoderParams`` (``EncDecParams`` for an encoder-decoder config): the
+reference's stacked periods unstacked into one layer each, every weight
+in the same (in, out) layout. Inputs may be
 numpy arrays (including bfloat16 ones), anything ``numpy.asarray``
 accepts, or tensors.
 """
@@ -42,30 +43,43 @@ def _layer_index(cfg):
     return [(l % cfg.period, l // cfg.period) for l in range(cfg.n_layers)]
 
 
-def lm_params_from_numpy(params, cfg, device: str | torch.device = "cpu"):
-    """The reference's decoder-only LM parameter tree (arrays as numpy)
-    as the port's :class:`~repro_torch.models.transformer.DecoderParams`
-    on ``device``: a pure unstacking, values and layouts unchanged."""
-    from repro_torch.models import transformer
+def _layer_kwargs(sub, p, device):
+    """A stacked layer tree at period index p as keyword arguments of the
+    layer's module: dicts as ``nn.ParameterDict``s, vectors as tensors."""
 
-    transformer.check_supported(cfg)
+    def t(x):
+        return array_from_numpy(np.asarray(x)[p], device)
+
+    return {name: nn.ParameterDict({k: nn.Parameter(t(x))
+                                    for k, x in v.items()})
+            if isinstance(v, dict) else t(v) for name, v in sub.items()}
+
+
+def lm_params_from_numpy(params, cfg, device: str | torch.device = "cpu"):
+    """The reference's LM parameter tree (arrays as numpy) as the port's
+    :class:`~repro_torch.models.transformer.DecoderParams` on ``device``,
+    or for an encoder-decoder config its
+    :class:`~repro_torch.models.encdec.EncDecParams`: a pure unstacking,
+    values and layouts unchanged (an MoE router stays fp32)."""
+    from repro_torch.models import encdec, transformer
 
     def t(x):
         return array_from_numpy(x, device)
 
-    def pdict(tree, p):
-        return nn.ParameterDict({name: nn.Parameter(t(np.asarray(v)[p]))
-                                 for name, v in tree.items()})
-
-    layers = []
-    for i, p in _layer_index(cfg):
-        sub = params["periods"][f"sub_{i}"]
-        parts = {name: pdict(sub[name], p) for name in ("attn", "ssm", "ffn")
-                 if name in sub}
-        if "norm2" in sub:
-            parts["norm2"] = t(np.asarray(sub["norm2"])[p])
-        layers.append(transformer.DecoderLayer(
-            t(np.asarray(sub["norm1"])[p]), **parts))
+    if cfg.is_enc_dec:
+        enc = params["enc"]["periods"]["sub_0"]
+        dec = params["dec"]["periods"]["sub_0"]
+        return encdec.EncDecParams(
+            t(params["embed"]), t(params["final_norm"]),
+            t(params["lm_head"]),
+            [transformer.DecoderLayer(**_layer_kwargs(enc, p, device))
+             for p in range(cfg.n_enc_layers)],
+            t(params["enc"]["enc_norm"]),
+            [encdec.CrossDecoderLayer(**_layer_kwargs(dec, p, device))
+             for p in range(cfg.n_layers)])
+    layers = [transformer.DecoderLayer(**_layer_kwargs(
+        params["periods"][f"sub_{i}"], p, device))
+        for i, p in _layer_index(cfg)]
     lm_head = params.get("lm_head")
     return transformer.DecoderParams(
         t(params["embed"]), t(params["final_norm"]), layers,
@@ -73,16 +87,30 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cpu"):
 
 
 def lm_caches_from_numpy(caches, cfg, device: str | torch.device = "cpu"):
-    """The reference's stacked caches (``{"sub_<i>": cache}``, leaves with
-    a leading period axis, as numpy) as the port's per-layer list: a
-    ``KVCache(k, v)`` becomes a :class:`~repro_torch.models.layers.KVCache`
-    and an ``SSMCache(conv, state)`` a
-    :class:`~repro_torch.models.mamba.SSMCache`, told apart by their field
-    names (both are pairs, so unpacking alone would not tell them apart)."""
+    """The reference's stacked caches (as numpy) as the port's per-layer
+    list. Decoder-only: ``{"sub_<i>": cache}`` with a leading period
+    axis; a ``KVCache(k, v)`` becomes a
+    :class:`~repro_torch.models.layers.KVCache` and an
+    ``SSMCache(conv, state)`` a :class:`~repro_torch.models.mamba.
+    SSMCache`, told apart by their field names (both are pairs, so
+    unpacking alone would not tell them apart). Encoder-decoder:
+    ``{"self": KVCache, "cross": CrossCache}`` with a leading layer axis
+    becomes one such dict per decoder layer, with the port's
+    :class:`~repro_torch.models.encdec.CrossCache`."""
+    from repro_torch.models.encdec import CrossCache
     from repro_torch.models.layers import KVCache
     from repro_torch.models.mamba import SSMCache
 
     kinds = {KVCache._fields: KVCache, SSMCache._fields: SSMCache}
+
+    def unstack(cache, p, kind):
+        return kind(*(array_from_numpy(np.asarray(leaf)[p], device)
+                      for leaf in cache))
+
+    if cfg.is_enc_dec:
+        return [{"self": unstack(caches["self"], l, KVCache),
+                 "cross": unstack(caches["cross"], l, CrossCache)}
+                for l in range(cfg.n_layers)]
     out = []
     for i, p in _layer_index(cfg):
         cache = caches[f"sub_{i}"]
@@ -90,6 +118,5 @@ def lm_caches_from_numpy(caches, cfg, device: str | torch.device = "cpu"):
         if kind is None:
             raise TypeError(f"sub_{i}: a cache with fields {list(kinds)} "
                             f"expected, got {type(cache).__name__}")
-        out.append(kind(*(array_from_numpy(np.asarray(leaf)[p], device)
-                          for leaf in cache)))
+        out.append(unstack(cache, p, kind))
     return out

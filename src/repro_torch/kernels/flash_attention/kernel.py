@@ -140,8 +140,9 @@ def flash_attention_cuda_call(q: torch.Tensor, k: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "the CUDA flash-attention kernel has no backward yet "
-            "(ROADMAP Queue A 10); run it under torch.no_grad()")
+            "the CUDA flash-attention kernel has no backward: run it "
+            "under torch.no_grad(); training uses attn_impl=\"chunked\" "
+            "(ROADMAP Queue A 3.2)")
     sq_valid = sq if seq_q_valid is None else seq_q_valid
     sk_valid = sk if seq_k_valid is None else seq_k_valid
     if not 0 <= sk_valid <= sk:

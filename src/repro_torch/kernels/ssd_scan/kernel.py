@@ -218,7 +218,7 @@ def ssd_scan_cuda_call(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise NotImplementedError(
             "the CUDA SSD-scan kernel has no backward: run it under "
             "torch.no_grad(); training uses ssd_impl=\"chunked\" (ROADMAP "
-            "Queue A 7.2)")
+            "Queue A 3.2)")
     x, b, c = (_last_contiguous(tn) for tn in (x, b, c))
     state_in = None if state0 is None else state0.contiguous()
     y = torch.empty((bsz, t, h, p), dtype=x.dtype, device=x.device)

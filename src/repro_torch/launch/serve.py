@@ -6,9 +6,11 @@ Usage:
         --batch 4 --prompt-len 32 --gen 16
 
 It runs on the GPU: prefill attention through the CUDA flash-attention
-kernel, and prefill's SSD scan in Mamba layers through the CUDA SSD-scan
-kernel (``--arch mamba2-1.3b``); ``serve(..., device="cpu")`` runs on the
-CPU.
+kernel (in an encoder-decoder, ``--arch seamless-m4t-large-v2``, the
+encoder's, the decoder's and the cross-attention), and prefill's SSD scan
+in Mamba layers through the CUDA SSD-scan kernel (``--arch
+mamba2-1.3b``); MoE configs (``--arch olmoe-1b-7b``) route each token to
+its top-k experts. ``serve(..., device="cpu")`` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ def _sync(device: torch.device) -> None:
 
 def generate(api: ModelAPI, params, prompt: dict, gen: int) -> dict:
     """Answer one request: prefill ``prompt`` (a batch of ``tokens``
-    (B, S) and, for M-RoPE, ``positions``), then ``gen - 1`` greedy decode
+    (B, S) and, for M-RoPE, ``positions``; for an encoder-decoder,
+    ``enc_embeds`` (B, S_enc, d_model)), then ``gen - 1`` greedy decode
     steps. Returns the ``gen`` new tokens per row (B, gen), the prefill's
     seconds and the decode loop's tokens per second, each read after the
     device finished its work."""
@@ -61,7 +64,8 @@ def serve(arch: str, smoke: bool = True, batch: int = 4,
           dtype=torch.float32, greedy: bool = True, device=None) -> dict:
     """Init ``arch`` (its smoke config, or the full one with
     ``smoke=False``) from ``seed``, draw a prompt of ``batch`` x
-    ``prompt_len`` tokens, and :func:`generate` ``gen`` tokens greedily.
+    ``prompt_len`` tokens (and, for an encoder-decoder, as many frame
+    embeddings), and :func:`generate` ``gen`` tokens greedily.
     ``device=None`` means the GPU."""
     if not greedy:
         raise NotImplementedError("only greedy decoding is implemented, as "
@@ -71,7 +75,7 @@ def serve(arch: str, smoke: bool = True, batch: int = 4,
     params = api.init(torch.Generator(api.device).manual_seed(seed))
     prompt = make_batch(cfg, batch, prompt_len,
                         generator=torch.Generator().manual_seed(1),
-                        device=api.device)
+                        device=api.device, dtype=dtype)
     prompt.pop("labels", None)
     return generate(api, params, prompt, gen)
 

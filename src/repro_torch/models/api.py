@@ -1,11 +1,11 @@
 """Unified model API for the LM side: ``build_model(cfg)`` returns a
-ModelAPI whose functions serve a decoder-only LM (init, prefill,
-decode_step, init_caches), the port of ``repro/models/api.py``.
+ModelAPI whose functions serve a decoder-only or an encoder-decoder LM
+(init, prefill, decode_step, init_caches), the port of
+``repro/models/api.py``.
 
-The reference's ``train_loss`` and its enc-dec branch are not ported yet
-(ROADMAP Queue A 10); neither are the deprecated CNN shims
-(``span_executor``, ``stap_executor``), whose staged replacement is
-``repro_torch.occam``.
+The reference's ``train_loss`` comes with training (ROADMAP Queue A
+3.2). The deprecated CNN shims (``span_executor``, ``stap_executor``)
+are not ported: their staged replacement is ``repro_torch.occam``.
 """
 from __future__ import annotations
 
@@ -16,14 +16,14 @@ import torch
 
 from repro_torch.configs.base import ModelCfg
 
-from . import layers, mamba, transformer
+from . import encdec, layers, mamba, transformer
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelCfg
     device: torch.device
-    init: Callable[[torch.Generator], transformer.DecoderParams]
+    init: Callable[[torch.Generator], torch.nn.Module]
     prefill: Callable[..., tuple[torch.Tensor, Any]]
     decode_step: Callable[..., tuple[torch.Tensor, Any]]
     init_caches: Callable[..., Any]
@@ -52,9 +52,12 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
     scan in Mamba layers the same way: ``"kernel"`` (the CUDA SSD-scan
     kernel on the GPU, its plain version on the CPU) or ``"chunked"`` (the
     twin of the reference's ``ssd_chunked``). ``init(generator)`` draws
-    the parameters with a ``torch.Generator`` on ``device``.
+    the parameters with a ``torch.Generator`` on ``device``. An
+    encoder-decoder config (``cfg.is_enc_dec``) gets the enc-dec stack,
+    whose prefill reads ``enc_embeds`` and ``tokens`` from the batch and
+    whose ``init_caches(b, s_max, s_enc=None)`` sizes the cross caches
+    to ``s_enc`` (default ``s_max``), as the reference's.
     """
-    transformer.check_supported(cfg)
     if attn_impl not in layers.ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {layers.ATTN_IMPLS}, "
                          f"got {attn_impl!r}")
@@ -63,12 +66,27 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
                          f"got {ssd_impl!r}")
     dev = resolve_device(device)
 
-    def init(generator: torch.Generator) -> transformer.DecoderParams:
+    def init(generator: torch.Generator) -> torch.nn.Module:
         if generator.device.type != dev.type:
             raise ValueError(f"the generator lies on {generator.device}; "
                              f"the model on {dev}")
+        if cfg.is_enc_dec:
+            return encdec.init_encdec_params(cfg, generator, dtype)
         return transformer.init_decoder_params(cfg, generator, dtype)
 
+    if cfg.is_enc_dec:
+        return ModelAPI(
+            cfg=cfg,
+            device=dev,
+            init=init,
+            prefill=lambda p, b, s_max: encdec.encdec_prefill(
+                p, b, cfg, s_max, attn_impl=attn_impl),
+            decode_step=lambda p, t, c, pos: encdec.encdec_decode_step(
+                p, t, c, pos, cfg),
+            init_caches=lambda b, s_max, s_enc=None:
+                encdec.init_encdec_caches(cfg, b, s_max, s_enc or s_max,
+                                          dtype, dev),
+        )
     return ModelAPI(
         cfg=cfg,
         device=dev,
@@ -77,22 +95,20 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
             p, b, cfg, s_max, attn_impl=attn_impl, ssd_impl=ssd_impl),
         decode_step=lambda p, t, c, pos: transformer.decoder_decode_step(
             p, t, c, pos, cfg),
-        init_caches=lambda b, s_max: transformer.init_decoder_caches(
-            cfg, b, s_max, dtype, dev),
+        init_caches=lambda b, s_max, s_enc=None:
+            transformer.init_decoder_caches(cfg, b, s_max, dtype, dev),
     )
 
 
 def make_batch(cfg: ModelCfg, batch: int, seq: int,
                generator: torch.Generator | None = None,
-               device=None) -> dict:
+               device=None, dtype=torch.float32) -> dict:
     """Synthetic batch matching the arch's input signature: ``tokens``
-    and ``labels`` (B, S) in [0, vocab), and (B, S, 3) ``positions`` for
-    M-RoPE configs. Drawn with ``generator`` (a CPU generator seeded 0
-    by default) and moved to ``device`` (default: the generator's)."""
-    if cfg.is_enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: enc-dec batches come with the enc-dec models "
-            "(ROADMAP Queue A 10)")
+    and ``labels`` (B, S) in [0, vocab), (B, S, 3) ``positions`` for
+    M-RoPE configs, and for an encoder-decoder config ``enc_embeds``
+    (B, S, d_model) N(0, 1) frame embeddings in ``dtype``. Drawn with
+    ``generator`` (a CPU generator seeded 0 by default) and moved to
+    ``device`` (default: the generator's)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     device = generator.device if device is None else device
@@ -101,6 +117,11 @@ def make_batch(cfg: ModelCfg, batch: int, seq: int,
         return torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
                              device=generator.device).to(device)
 
+    if cfg.is_enc_dec:
+        enc = torch.randn((batch, seq, cfg.d_model), generator=generator,
+                          device=generator.device)
+        return {"enc_embeds": enc.to(device, dtype), "tokens": tokens(),
+                "labels": tokens()}
     b: dict[str, Any] = {"tokens": tokens(), "labels": tokens()}
     if cfg.mrope_sections is not None:  # VLM backbone: 3-D positions (t,h,w)
         pos = torch.arange(seq, dtype=torch.int32, device=device)

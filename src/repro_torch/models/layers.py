@@ -209,33 +209,34 @@ def attention_sublayer(p, x, cfg, positions, *, causal=True,
     Modes:
       train/prefill: cache=None, or a fresh cache to fill; full attention.
       decode: x is (B, 1, D); cache holds past KV; cache_pos an int.
+      cross-attention: kv_override = (k, v), each (B, S_enc, Hkv, D),
+        precomputed from the encoder; q is not rotated, no cache is
+        written, and a one-token x attends to all S_enc rows.
 
     The cache is updated in place (the reference returns an updated copy)
-    and returned as ``new_cache``. ``kv_override`` (cross-attention) is
-    not ported yet and raises.
+    and returned as ``new_cache``.
     """
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override) is not ported yet; it comes with "
-            "the enc-dec models, ROADMAP Queue A 10")
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
     q = q.reshape(b, s, hq, dh)
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if "bk" in p:
-        k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(b, s, hkv, dh)
-    v = v.reshape(b, s, hkv, dh)
-    if rope:
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if kv_override is None:
+        k = x @ p["wk"]
+        v = x @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        k = k.reshape(b, s, hkv, dh)
+        v = v.reshape(b, s, hkv, dh)
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        k, v = kv_override
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and kv_override is None:
         if s == 1:  # decode: insert at cache_pos
             cache.k[:, cache_pos:cache_pos + 1] = k.to(cache.k.dtype)
             cache.v[:, cache_pos:cache_pos + 1] = v.to(cache.v.dtype)
@@ -245,6 +246,9 @@ def attention_sublayer(p, x, cfg, positions, *, causal=True,
             cache.v[:, :s] = v.to(cache.v.dtype)
             o = full_attention(q, k, v, causal=causal, attn_impl=attn_impl)
         new_cache = cache
+    elif s == 1 and kv_override is not None:
+        # cross-attention decode: the whole memory, no growth
+        o = decode_attention(q, k, v, k.shape[1])
     else:
         o = full_attention(q, k, v, causal=causal, attn_impl=attn_impl)
     y = row_parallel(o.reshape(b, s, hq * dh), p["wo"])

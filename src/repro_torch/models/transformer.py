@@ -8,13 +8,12 @@ scans over them; the port keeps one :class:`DecoderLayer` per layer in an
 :class:`~repro_torch.models.mamba.SSMCache` for an SSM layer), in layer
 order (layer ``p * period + i`` is the reference's
 ``periods["sub_<i>"][p]``). Each layer is an attention or SSM (Mamba-2)
-mixer, with a dense SwiGLU FFN or none; an MoE FFN raises
-``NotImplementedError``.
+mixer, with a dense SwiGLU FFN, an MoE FFN (``models/moe.py``) or none.
 
-Not ported yet (ROADMAP Queue A 10): ``param_spec_tree``,
-``shard_caches`` and ``cache_axes`` (TPU-mesh sharding), the training
-losses ``chunked_cross_entropy`` and ``decoder_lm_loss``, and
-``_carry_barrier`` (an XLA scheduling pin with no eager counterpart).
+Not ported yet: the training losses ``chunked_cross_entropy`` and
+``decoder_lm_loss`` (ROADMAP Queue A 3.2); ``param_spec_tree``,
+``shard_caches`` and ``cache_axes`` (TPU-mesh sharding, Queue A 3.5).
+``_carry_barrier`` is an XLA scheduling pin with no eager counterpart.
 """
 from __future__ import annotations
 
@@ -25,49 +24,39 @@ from torch import nn
 
 from repro_torch.configs.base import ModelCfg
 
-from . import layers, mamba
+from . import layers, mamba, moe
 from .layers import KVCache
 from .mamba import SSMCache
 
-_LATER = ("is not ported yet: the port serves attention and Mamba "
-          "decoders with dense FFNs; MoE and enc-dec models come later "
-          "(ROADMAP Queue A 10)")
-
-
-def check_supported(cfg: ModelCfg) -> None:
-    """Raise NotImplementedError for a config with a layer the port does
-    not run yet (an MoE FFN) or an encoder."""
-    if cfg.is_enc_dec:
-        raise NotImplementedError(f"{cfg.name}: an encoder-decoder {_LATER}")
-    for l in range(cfg.n_layers):
-        mixer, ffn = cfg.layer_kind(l)
-        if mixer not in ("attn", "ssm") or ffn not in ("dense", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: layer {l} ({mixer} mixer, {ffn} FFN) {_LATER}")
+AUX_LOSSES = ("load_balance_loss", "router_z_loss")
 
 
 class DecoderLayer(nn.Module):
     """One layer: RMSNorm -> mixer -> residual, then (when the layer has
-    one) RMSNorm -> dense FFN -> residual. The mixer is ``attn`` or
-    ``ssm``; ``attn``, ``ssm`` and ``ffn`` are ``nn.ParameterDict``s with
-    the reference's names, and a layer holds only the ones it has (as
+    one) RMSNorm -> FFN -> residual. The mixer is ``attn`` or ``ssm``, the
+    FFN a dense ``ffn`` or an MoE ``moe``; each is an ``nn.ParameterDict``
+    with the reference's names, and a layer holds only the ones it has (as
     the reference's parameter tree does)."""
 
     def __init__(self, norm1: torch.Tensor,
                  attn: nn.ParameterDict | None = None,
                  norm2: torch.Tensor | None = None,
                  ffn: nn.ParameterDict | None = None, *,
-                 ssm: nn.ParameterDict | None = None):
+                 ssm: nn.ParameterDict | None = None,
+                 moe: nn.ParameterDict | None = None):
         super().__init__()
         if (attn is None) == (ssm is None):
             raise ValueError("a layer has exactly one mixer, attn or ssm")
-        if (norm2 is None) != (ffn is None):
-            raise ValueError("norm2 and ffn come together")
+        if ffn is not None and moe is not None:
+            raise ValueError("a layer has at most one FFN, ffn or moe")
+        if (norm2 is None) != (ffn is None and moe is None):
+            raise ValueError("norm2 comes with an FFN, ffn or moe")
         self.norm1 = nn.Parameter(norm1)
         self.attn = attn
         self.ssm = ssm
         self.norm2 = None if norm2 is None else nn.Parameter(norm2)
         self.ffn = ffn
+        self.moe = moe
 
 
 class DecoderParams(nn.Module):
@@ -93,7 +82,6 @@ def init_decoder_params(cfg: ModelCfg, generator: torch.Generator,
                         dtype=torch.bfloat16) -> DecoderParams:
     """Random parameters on ``generator``'s device, distributed as the
     reference's (its values differ: the generators differ)."""
-    check_supported(cfg)
     vp, d = cfg.vocab_padded, cfg.d_model
     dev = generator.device
 
@@ -116,6 +104,9 @@ def init_decoder_params(cfg: ModelCfg, generator: torch.Generator,
         if ffn_kind == "dense":
             mix.update(norm2=ones(),
                        ffn=layers.init_ffn(generator, d, cfg.d_ff, dtype))
+        elif ffn_kind == "moe":
+            mix.update(norm2=ones(),
+                       moe=moe.init_moe(generator, d, cfg.moe, dtype))
         stack.append(DecoderLayer(ones(), **mix))
     return DecoderParams(embed, ones(), stack, lm_head)
 
@@ -127,7 +118,9 @@ def init_decoder_params(cfg: ModelCfg, generator: torch.Generator,
 def _sublayer_apply(layer: DecoderLayer, x, cfg: ModelCfg, positions,
                     cache, cache_pos: int | None, attn_impl: str,
                     ssd_impl: str):
-    """One layer: mixer + optional dense FFN. Returns (x, new_cache)."""
+    """One layer: mixer + optional FFN. Returns (x, new_cache, aux): aux
+    holds an MoE layer's losses, and is empty for any other layer."""
+    aux = {}
     h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
     if layer.attn is not None:
         y, new_cache = layers.attention_sublayer(
@@ -140,33 +133,42 @@ def _sublayer_apply(layer: DecoderLayer, x, cfg: ModelCfg, positions,
             cache=cache if isinstance(cache, SSMCache) else None,
             cache_pos=cache_pos, ssd_impl=ssd_impl)
     x = x + y
-    if layer.ffn is not None:
+    if layer.norm2 is not None:
         h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
-        x = x + layers.ffn_sublayer(layer.ffn, h)
-    return x, new_cache
+        if layer.moe is not None:
+            y, aux = moe.moe_sublayer(layer.moe, h, cfg.moe)
+        else:
+            y = layers.ffn_sublayer(layer.ffn, h)
+        x = x + y
+    return x, new_cache, aux
 
 
 def decoder_stack(params: DecoderParams, x, cfg: ModelCfg, positions,
                   caches: list | None = None, cache_pos: int | None = None,
                   attn_impl: str = "flash", ssd_impl: str = "kernel"):
-    """Run all layers. Returns (x, new_caches).
+    """Run all layers. Returns (x, new_caches, aux_losses).
 
     Without caches this is the no-cache forward; with them, the serving
     path (prefill when x has more than one token, else a decode step at
-    ``cache_pos``), which fills the caches in place. (The reference also
-    returns MoE aux losses; dense layers have none.)
+    ``cache_pos``), which fills the caches in place. ``aux_losses`` sums
+    each of ``AUX_LOSSES`` over the MoE layers (0-d fp32 tensors, zeros
+    without MoE layers), as the reference's.
     """
     if caches is not None and len(caches) != len(params.layers):
         raise ValueError(f"{len(caches)} caches for "
                          f"{len(params.layers)} layers")
     new_caches = None if caches is None else []
+    aux_losses = {name: torch.zeros((), dtype=torch.float32,
+                                    device=x.device) for name in AUX_LOSSES}
     for l, layer in enumerate(params.layers):
-        x, nc = _sublayer_apply(layer, x, cfg, positions,
-                                None if caches is None else caches[l],
-                                cache_pos, attn_impl, ssd_impl)
+        x, nc, aux = _sublayer_apply(layer, x, cfg, positions,
+                                     None if caches is None else caches[l],
+                                     cache_pos, attn_impl, ssd_impl)
         if new_caches is not None:
             new_caches.append(nc)
-    return x, new_caches
+        for name, value in aux.items():
+            aux_losses[name] = aux_losses[name] + value
+    return x, new_caches, aux_losses
 
 
 def embed_tokens(params: DecoderParams, tokens, cfg: ModelCfg):
@@ -188,7 +190,6 @@ def init_decoder_caches(cfg: ModelCfg, batch: int, s_max: int,
     """One zeroed cache per layer: a (B, s_max, Hkv, Dh) K/V cache for an
     attention layer; for an SSM layer a conv window in ``dtype`` and a
     state in fp32 (whatever ``dtype``), as the reference's."""
-    check_supported(cfg)
     shape = (batch, s_max, cfg.n_kv_heads, cfg.d_head)
     caches = []
     for l in range(cfg.n_layers):
@@ -221,8 +222,8 @@ def decoder_prefill(params: DecoderParams, batch: dict, cfg: ModelCfg,
     b, s = x.shape[0], x.shape[1]
     positions = _positions(batch, b, s, device)
     caches = init_decoder_caches(cfg, b, s_max, x.dtype, device)
-    x, new_caches = decoder_stack(params, x, cfg, positions, caches,
-                                  attn_impl=attn_impl, ssd_impl=ssd_impl)
+    x, new_caches, _ = decoder_stack(params, x, cfg, positions, caches,
+                                     attn_impl=attn_impl, ssd_impl=ssd_impl)
     logits = unembed(params, x[:, -1:, :], cfg)
     return logits, new_caches
 
@@ -235,7 +236,7 @@ def decoder_decode_step(params: DecoderParams, tokens, caches, pos: int,
     x = embed_tokens(params, tokens.to(params.embed.device), cfg)
     positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
                            device=x.device)
-    x, new_caches = decoder_stack(params, x, cfg, positions, caches,
-                                  cache_pos=int(pos))
+    x, new_caches, _ = decoder_stack(params, x, cfg, positions, caches,
+                                     cache_pos=int(pos))
     logits = unembed(params, x, cfg)
     return logits, new_caches

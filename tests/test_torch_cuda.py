@@ -2,8 +2,10 @@
 SSD-scan kernels against their plain PyTorch versions, a deployment on the
 GPU against the same deployment on the CPU, the fused-span kernel at a
 pinned cluster of 8, serving sessions' CUDA graphs against eager runs,
-STAP pipelines on one GPU against the single-device run, and the LMs'
-(Llama, Mamba2) prefill and decode on the GPU against the CPU.
+STAP pipelines on one GPU against the single-device run, the MoE layer on
+the GPU against the CPU, and the LMs' (Llama, Mamba2, OLMoE and the
+SeamlessM4T encoder-decoder) prefill and decode on the GPU against the
+CPU.
 
 This file imports neither JAX nor ``repro``, so it runs on a GPU machine
 that has only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda
@@ -27,7 +29,7 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_cb_plain,
                                               ssd_scan_plain_call)
 from repro_torch.launch.serve import generate
-from repro_torch.models import cnn
+from repro_torch.models import cnn, moe
 from repro_torch.models.api import build_model, make_batch
 from repro_torch.occam.calibrate import timers
 
@@ -564,6 +566,71 @@ def test_llama_smoke_serving_on_gpu_matches_cpu(cuda):
     want, _ = cpu_api.decode_step(params, tok, want_caches, 40)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     out_gpu = generate(gpu_api, gpu_params, prompt, 8)
+    out_cpu = generate(cpu_api, params, prompt, 8)
+    assert torch.equal(out_gpu["tokens"].cpu(), out_cpu["tokens"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["local", "gspmd_scatter"])
+def test_moe_sublayer_on_gpu_matches_cpu(cuda, impl):
+    """The same routing on both devices (indices and positions exactly,
+    drops included at the default capacity factor), and the layer's
+    output and aux losses within 1e-5 in fp32 (CUDA's ``index_add_``
+    accumulates in atomic order)."""
+    cfg = get_smoke("olmoe-1b-7b")
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg.d_model, cfg.moe,
+                     torch.float32)
+    gp = {name: v.detach().to(cuda) for name, v in p.items()}
+    x = torch.randn((4, 24, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    with torch.no_grad():
+        _, idx, pos, _ = moe._route(x.reshape(-1, cfg.d_model), p["router"],
+                                    e, k)
+        _, g_idx, g_pos, _ = moe._route(x.to(cuda).reshape(-1, cfg.d_model),
+                                        gp["router"], e, k)
+        want, want_aux = moe.moe_sublayer(p, x, cfg.moe, impl=impl)
+        got, got_aux = moe.moe_sublayer(gp, x.to(cuda), cfg.moe, impl=impl)
+    assert torch.equal(g_idx.cpu(), idx) and torch.equal(g_pos.cpu(), pos)
+    # the whole batch as one group drops an assignment (per sequence more)
+    assert int((pos >= moe.capacity(x.shape[0] * x.shape[1], e, k,
+                                    cfg.moe.capacity_factor)).sum()) > 0
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for name in want_aux:
+        torch.testing.assert_close(got_aux[name].cpu(), want_aux[name],
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,launches", [("olmoe-1b-7b", 2),
+                                           ("seamless-m4t-large-v2", 6)])
+def test_moe_and_encdec_smoke_serving_on_gpu_matches_cpu(cuda, arch,
+                                                         launches):
+    """The same parameters on both devices: GPU prefill (flash launches:
+    one per attention layer, and for the encoder-decoder 2 encoder + 2
+    decoder self-attention + 2 cross-attention; none in decode) and decode
+    logits match the CPU's plain-version path, and greedy generation emits
+    the same tokens."""
+    cfg = get_smoke(arch)
+    cpu_api = build_model(cfg, dtype=torch.float32, device="cpu")
+    gpu_api = build_model(cfg, dtype=torch.float32)
+    assert gpu_api.device.type == "cuda"
+    params = cpu_api.init(torch.Generator().manual_seed(0))
+    gpu_params = copy.deepcopy(params).to(cuda)
+    prompt = make_batch(cfg, 2, 40, generator=torch.Generator().manual_seed(1))
+    prompt.pop("labels")
+    before = flash_kernel.launches
+    got, got_caches = gpu_api.prefill(gpu_params, prompt, 48)
+    assert flash_kernel.launches == before + launches
+    want, want_caches = cpu_api.prefill(params, prompt, 48)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    tok = want[:, -1].argmax(-1)[:, None]
+    got, _ = gpu_api.decode_step(gpu_params, tok, got_caches, 40)
+    want, _ = cpu_api.decode_step(params, tok, want_caches, 40)
+    assert flash_kernel.launches == before + launches
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    out_gpu = generate(gpu_api, gpu_params, prompt, 8)
+    assert flash_kernel.launches == before + 2 * launches
     out_cpu = generate(cpu_api, params, prompt, 8)
     assert torch.equal(out_gpu["tokens"].cpu(), out_cpu["tokens"])
 

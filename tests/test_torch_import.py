@@ -32,6 +32,7 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.kernels.flash_attention.kernel",
                 "repro_torch.kernels.ssd_scan.kernel",
                 "repro_torch.models.mamba",
+                "repro_torch.models.moe", "repro_torch.models.encdec",
                 "repro_torch.launch.serve",
                 "repro_torch.occam.quant.casting",
                 "repro_torch.occam.calibrate.timers",

@@ -1,8 +1,9 @@
 """The port's LM serving path against the JAX package on the CPU: layers
 (RMSNorm, RoPE / M-RoPE, chunked and decode attention, the attention
 sublayer) and the whole prefill + decode of the five dense decoder-only
-smoke configs, on parameters converted from JAX and the same numpy-made
-tokens. fp32 throughout."""
+smoke configs and the three with MoE layers (olmoe, moonshot, and the
+Jamba Mamba/attention hybrid), on parameters converted from JAX and the
+same numpy-made tokens. fp32 throughout."""
 import functools
 
 import jax
@@ -22,6 +23,7 @@ from repro_torch.models.api import build_model, make_batch
 
 DENSE = ["llama3.2-1b", "internlm2-1.8b", "minitron-4b", "qwen2.5-14b",
          "qwen2-vl-2b"]
+MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b"]
 IMPLS = ["flash", "chunked"]
 B, S, S_MAX, N_DECODE = 2, 12, 20, 3
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -139,13 +141,6 @@ def test_attention_sublayer_matches_jax(arch, impl):
     close(cache.v, jcache.v, LAYER_TOL)
 
 
-def test_cross_attention_not_ported_yet():
-    cfg, _, tp = attn_params("llama3.2-1b")
-    x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        layers.attention_sublayer(tp, x, cfg, None, kv_override=(x, x))
-
-
 # ------------------------------------------------------- the whole slice
 
 def inputs(cfg):
@@ -191,18 +186,24 @@ def port_api(arch, impl):
 
 
 def close_caches(cfg, got, want):
+    """Every leaf of every layer's cache: K/V, or an SSM layer's conv
+    window and state."""
     want = convert.lm_caches_from_numpy(want, cfg)
     assert len(got) == len(want) == cfg.n_layers
     for g, w in zip(got, want):
-        close(g.k, w.k.numpy(), MODEL_TOL)
-        close(g.v, w.v.numpy(), MODEL_TOL)
+        assert type(g) is type(w)
+        for g_leaf, w_leaf in zip(g, w):
+            close(g_leaf, w_leaf.numpy(), MODEL_TOL)
 
 
 @pytest.mark.parametrize("impl", IMPLS)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_and_decode_match_jax(arch, impl):
     """Prefill last-token logits and filled caches, then three decode steps
-    fed the same tokens, against the JAX default (chunked) path."""
+    fed the same tokens, against the JAX default (chunked) path. MoE
+    layers run at their default capacity factor: a decode step's B
+    tokens get a capacity of 1 per expert, and collisions drop as in the
+    reference."""
     cfg, api, params = port_api(arch, impl)
     _, want = jax_serving(arch)
     tokens, pos, steps = inputs(cfg)
@@ -230,14 +231,63 @@ def test_decoder_stack_without_cache_matches_jax(impl):
     rng = np.random.default_rng(8)
     x = rng.standard_normal((B, S, cfg.d_model), np.float32)
     _, pos, _ = inputs(cfg)
-    got, caches = transformer.decoder_stack(params, t(x), cfg, t(pos),
-                                            attn_impl=impl)
+    got, caches, aux = transformer.decoder_stack(params, t(x), cfg, t(pos),
+                                                 attn_impl=impl)
     assert caches is None
+    assert {n: float(v) for n, v in aux.items()} == \
+        {"load_balance_loss": 0.0, "router_z_loss": 0.0}
     j_params = jax.tree.map(jnp.asarray, jax_serving(arch)[0])
     j_cfg = j_get_smoke(arch)
     want, _, _ = jax.jit(lambda p, x_, pos_: j_transformer.decoder_stack(
         p, x_, j_cfg, pos_))(j_params, jnp.asarray(x), jnp.asarray(pos))
     close(got, want, MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_decoder_stack_aux_losses_match_jax(arch):
+    """The no-cache forward of an MoE stack and its load-balance and
+    router z losses, each summed over the MoE layers."""
+    from repro.models import transformer as j_transformer
+    from repro_torch.models import transformer
+
+    cfg, _, params = port_api(arch, "chunked")
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((B, S, cfg.d_model), np.float32)
+    _, pos, _ = inputs(cfg)
+    got, _, aux = transformer.decoder_stack(params, t(x), cfg, t(pos),
+                                            attn_impl="chunked",
+                                            ssd_impl="chunked")
+    j_params = jax.tree.map(jnp.asarray, jax_serving(arch)[0])
+    j_cfg = j_get_smoke(arch)
+    want, _, j_aux = jax.jit(lambda p, x_, pos_: j_transformer.decoder_stack(
+        p, x_, j_cfg, pos_))(j_params, jnp.asarray(x), jnp.asarray(pos))
+    close(got, want, MODEL_TOL)
+    assert set(aux) == set(j_aux)
+    for name in aux:
+        assert float(aux[name].detach()) > 0
+        close(aux[name], j_aux[name], MODEL_TOL)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_matches_teacher_forcing(arch, impl):
+    """Prefill of S - 1 tokens then a decode step of token S - 1 gives the
+    last-token logits of a prefill of all S tokens, at the no-drop
+    capacity factor E / k (drops depend on a token's position in the
+    batch by design), as the reference's smoke test holds it."""
+    import dataclasses
+
+    cfg = get_smoke(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts / cfg.moe.top_k)))
+    api = build_model(cfg, dtype=torch.float32, device="cpu",
+                      attn_impl=impl)
+    params = convert.lm_params_from_numpy(jax_serving(arch)[0], cfg)
+    tokens, _, _ = inputs(cfg)
+    full, _ = api.prefill(params, {"tokens": t(tokens)}, S_MAX)
+    _, caches = api.prefill(params, {"tokens": t(tokens[:, :S - 1])}, S_MAX)
+    step, _ = api.decode_step(params, t(tokens[:, S - 1:]), caches, S - 1)
+    torch.testing.assert_close(step, full, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -267,10 +317,12 @@ def test_generate_greedy_tokens_match_jax(impl):
     assert out["prefill_s"] > 0 and out["decode_tok_per_s"] > 0
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-14b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-14b",
+                                  "olmoe-1b-7b", "jamba-1.5-large-398b"])
 def test_init_matches_jax_tree(arch):
     """``api.init`` draws parameters with the shapes and dtypes of the
-    converted JAX tree, and the distributions' scales."""
+    converted JAX tree (an MoE router fp32), and the distributions'
+    scales."""
     cfg = get_smoke(arch)
     api = build_model(cfg, dtype=torch.float32, device="cpu")
     got = dict(api.init(torch.Generator().manual_seed(0)).named_parameters())
@@ -278,7 +330,11 @@ def test_init_matches_jax_tree(arch):
         jax_serving(arch)[0], cfg).named_parameters())
     assert {n: (p.shape, p.dtype) for n, p in got.items()} == \
         {n: (p.shape, p.dtype) for n, p in want.items()}
-    for name in ("embed", "layers.0.attn.wq", "layers.1.ffn.w2"):
+    names = [n for n in ("embed", "layers.0.attn.wq", "layers.1.ffn.w2",
+                         "layers.1.moe.router", "layers.1.moe.w1",
+                         "layers.1.moe.w2") if n in got]
+    assert len(names) >= 3
+    for name in names:
         ratio = float(got[name].detach().std() / want[name].detach().std())
         assert 0.8 < ratio < 1.25, (name, ratio)
 
@@ -297,16 +353,6 @@ def test_make_batch_mrope_positions():
     assert b["positions"].shape == (3, 5, 3)
     assert torch.equal(b["positions"][1, :, 2],
                        torch.arange(5, dtype=torch.int32))
-
-
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "moonshot-v1-16b-a3b",
-                                  "jamba-1.5-large-398b",
-                                  "seamless-m4t-large-v2"])
-def test_unported_archs_raise(arch):
-    """MoE configs (also the SSM/attention hybrid with MoE layers) and
-    enc-dec configs are not served yet."""
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        build_model(get_smoke(arch), device="cpu")
 
 
 def test_default_device_is_the_gpu():

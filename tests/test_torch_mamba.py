@@ -190,8 +190,8 @@ def test_decoder_stack_without_cache_matches_jax(impl):
     rng = np.random.default_rng(8)
     x = rng.standard_normal((B, S, cfg.d_model), np.float32)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
-    got, caches = transformer.decoder_stack(params, t(x), cfg, t(pos),
-                                            ssd_impl=impl)
+    got, caches, _ = transformer.decoder_stack(params, t(x), cfg, t(pos),
+                                               ssd_impl=impl)
     assert caches is None
     j_params = jax.tree.map(jnp.asarray, jax_serving()[0])
     j_cfg = j_get_smoke(ARCH)
