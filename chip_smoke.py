@@ -215,6 +215,36 @@ full published width (fp32, random weights from ``--seed``):
    causal decoder, 24 non-causal cross-attention; 216 in all); logits
    and times as in phase 12, each kind of flash call timed.
 
+14. Train steps on the card against the CPU port: for each family's smoke
+   config (llama3.2-1b, olmoe-1b-7b, mamba2-1.3b, the Jamba hybrid,
+   qwen2-vl-2b with M-RoPE, the SeamlessM4T encoder-decoder), the same
+   parameters and a 4 x 64 batch on both devices (fp32, TF32 off), one
+   ``make_train_step`` at one and at two microbatches: loss, aux losses,
+   grad_norm and each parameter's Adam moments (the step's gradients)
+   within 1e-4 x max|cpu|, every updated parameter within 1e-4 x
+   max|cpu| over the model, and for the MoE configs the routing
+   decisions that differ counted.
+15. Path ``llama3.2-1b-train``: ``train("llama3.2-1b", smoke=False,
+   steps=6, batch=4, seq=1024, microbatches=2, ckpt_every=3)`` at full
+   width (1,235,814,400 parameters asserted) under deterministic
+   algorithms, with its async checkpoints (free disk printed first); a
+   second ``train`` resumed from the step-3 checkpoint gives steps 4-6
+   the same losses and the same final parameters (bit for bit, or within
+   1e-5 x max naming the operation that has no deterministic CUDA path);
+   every loss finite, the first within 0.5 of ln(128,256); then the
+   trained parameters serve a 4 x 1024 prefill through ``generate`` on
+   the flash kernel: exactly 16 launches on the path (training runs the
+   chunked twin), each call held against plain on its own inputs, the
+   logits within 1e-3 x max|chunked| of the chunked prefill's. Then one
+   step at two microbatches against one at one from the step-6
+   checkpoint (1e-4 x max), the step time (median of steps 2-6) and
+   tokens/s beside the step's FLOP bound at 67 TFLOP/s, peak memory, the
+   checkpoint's bytes and its copy, write and restore seconds, step time
+   and peak memory with per-layer checkpointing on and off, a profile of
+   one step, and the flash call's times. The script sets
+   ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts, which deterministic
+   cuBLAS needs.
+
 The line before the last is the kernels' JSON summary, one record per
 path with that path's launches, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible GPU, or outside a
@@ -223,13 +253,19 @@ checkout of the repository, the script fails before printing a result.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import gc
 import json
+import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -360,6 +396,18 @@ SEAMLESS_PARAMS = 2_034_663_424 + 24 * 2 * 1024 + 24 * 3 * 1024 + 2 * 1024
 # profiler operators that move tokens to and from the experts' slots
 DISPATCH_OPS = ("aten::index_select", "aten::index_add_", "aten::scatter_",
                 "aten::gather", "aten::topk", "aten::cumsum")
+# phase 14: one train step of each family's smoke config on the card
+# against the CPU port, at one and two microbatches
+TRAIN_SMOKE_ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "mamba2-1.3b",
+                     "jamba-1.5-large-398b", "qwen2-vl-2b",
+                     "seamless-m4t-large-v2")
+# phase 15: Llama-3.2-1B trained at full width through ``train``; its
+# module's parameter count (the config's, which leaves out the RMSNorm
+# vectors, plus the norms: 16 layers x 2 + the final one, of 2048)
+TRAIN_PATH = "llama3.2-1b-train"
+TRAIN_PARAMS = 1_235_814_400
+TRAIN_KW = dict(smoke=False, steps=6, batch=4, seq=1024, microbatches=2,
+                ckpt_every=3)
 
 
 def he_params(net, rng):
@@ -2241,11 +2289,453 @@ def routed_serving(torch, seed, compare, path, arch, width, n_params_want,
             "library_ms": rec["library_ms"]}
 
 
+def smoke_train_steps(torch, seed, compare) -> None:
+    """Phase 14: for each family's smoke config, the same parameters and
+    batch (4 x 64) on the card and on the CPU, fp32 with TF32 off, one
+    ``make_train_step`` each at one and at two microbatches, AdamW at the
+    reference's defaults: the loss, the aux losses, grad_norm and every
+    parameter's Adam moments (the step's gradients) within
+    1e-4 x max|cpu| each, every updated parameter within 1e-4 x max|cpu|
+    over the model. For the MoE configs the (token, layer) routing
+    decisions of the step's forward are counted where the two devices
+    differ (``moe._route`` wrapped, as phase 12 does)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train_step import make_train_step
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.optim.adamw import AdamW
+
+    route = moe._route
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = get_smoke(arch)
+        apis = {"cpu": build_model(cfg, dtype=torch.float32, device="cpu"),
+                "cuda": build_model(cfg, dtype=torch.float32)}
+        base = apis["cpu"].init(torch.Generator().manual_seed(seed))
+        whole = make_batch(cfg, 4, 64,
+                           generator=torch.Generator().manual_seed(seed + 14))
+        for mb in (1, 2):
+            batch = whole if mb == 1 else {
+                k: v.reshape(mb, 4 // mb, *v.shape[1:])
+                for k, v in whole.items()}
+            micro = [batch] if mb == 1 else [{k: v[i] for k, v in
+                                              batch.items()}
+                                             for i in range(mb)]
+            routed = {"cpu": [], "cuda": []}
+
+            def recording_route(x, router, e, k):
+                out = route(x, router, e, k)
+                routed[x.device.type].append(
+                    out[1].sort(dim=-1).values.cpu())
+                return out
+
+            params, states, metrics = {}, {}, {}
+            for name, api in apis.items():
+                p = copy.deepcopy(base).to(api.device)
+                moe._route = recording_route
+                try:  # the step's forward once more, to read its routing
+                    with torch.no_grad():
+                        for b in micro:
+                            api.train_loss(p, b)
+                finally:
+                    moe._route = route
+                opt = AdamW()  # the reference's defaults
+                states[name] = opt.init(p)
+                metrics[name] = make_train_step(api, opt, mb)(
+                    p, states[name],
+                    {k: v.to(api.device) for k, v in batch.items()})
+                params[name] = p
+            flips = sum(int((x != y).any(dim=-1).sum())
+                        for x, y in zip(routed["cpu"], routed["cuda"]))
+            decisions = sum(int(x.shape[0]) for x in routed["cpu"])
+            if sorted(metrics["cuda"]) != sorted(metrics["cpu"]):
+                raise AssertionError(f"{arch} M={mb}: metrics "
+                                     f"{sorted(metrics['cuda'])}")
+            for key, want in metrics["cpu"].items():
+                compare(f"{arch} M={mb} {key}", metrics["cuda"][key],
+                        want.cuda(), rel=1e-4)
+            names = [n for n, _ in params["cpu"].named_parameters()]
+            # the step's (clipped) gradients, through m = 0.1 g and
+            # v = 0.05 g^2: each within 1e-4 x its own max|cpu|
+            g_worst = 0.0
+            for part in ("m", "v"):
+                for name, want, got in zip(names,
+                                           getattr(states["cpu"], part),
+                                           getattr(states["cuda"], part)):
+                    err, scale = compare(f"{arch} M={mb} {part} {name}",
+                                         got, want.cuda(), rel=1e-4)
+                    g_worst = max(g_worst, err / scale)
+            # the updated parameters within 1e-4 x max|cpu| over the
+            # model: Adam's first step moves every entry by about lr,
+            # whatever its gradient, so an entry whose gradient is within
+            # the devices' rounding of 0 may step differently; a band of
+            # 1e-4 x its own tensor's max would demand the first step
+            # agree to 1e-4 relative of lr there
+            want_p = [w.detach() for w in params["cpu"].parameters()]
+            scale = max(float(w.abs().max()) for w in want_p)
+            p_worst, p_rel = 0.0, 0.0
+            for name, want, got in zip(names, want_p,
+                                       params["cuda"].parameters()):
+                err = float((got.detach().cpu() - want).abs().max())
+                if not bool(torch.isfinite(got).all()) \
+                        or err > 1e-4 * scale:
+                    raise AssertionError(f"{arch} M={mb} {name}: max|err| "
+                                         f"{err:.3e} > 1e-4 x {scale:.3e}")
+                p_worst = max(p_worst, err)
+                p_rel = max(p_rel, err / float(want.abs().max()))
+            loss = metrics["cpu"]["loss"]
+            print(f"train step {arch} smoke, microbatches {mb}: loss "
+                  f"{float(loss):.6f} (|card-cpu| "
+                  f"{abs(float(metrics['cuda']['loss']) - float(loss)):.3e}),"
+                  f" grad_norm {float(metrics['cpu']['grad_norm']):.6f}; "
+                  f"{len(names)} parameters: m and v worst max|card-cpu| / "
+                  f"max|cpu| {g_worst:.3e} (band 1e-4 each); updated "
+                  f"parameters worst max|card-cpu| {p_worst:.3e} (band 1e-4 "
+                  f"x {scale:.4f}), per tensor at most {p_rel:.3e} of its "
+                  f"max"
+                  + (f"; routing decisions (token, MoE layer) that differ: "
+                     f"{flips} of {decisions}" if decisions else ""))
+    torch.cuda.synchronize()
+
+
+def training_phase(torch, seed, compare) -> dict:
+    """Phase 15, path ``llama3.2-1b-train``: ``train("llama3.2-1b",
+    smoke=False, steps=6, batch=4, seq=1024, microbatches=2, ckpt_every=3)``
+    at full width under ``torch.use_deterministic_algorithms`` (warn
+    only: an operation without a deterministic CUDA path is named), then a
+    second ``train`` resumed from the step-3 checkpoint, then the trained
+    parameters served through ``generate`` on the flash kernel. The flash
+    count is set to 0 before the first ``train`` and read after
+    ``generate``: training runs the chunked twin (no kernel has a
+    backward), the prefill 16 launches. Then the checks and times: the
+    restart against the uninterrupted run (bit for bit, or within 1e-5 x
+    max naming the operation), one step at two microbatches against one
+    at one from the step-6 checkpoint (1e-4 x max), the prefill's logits
+    against the chunked prefill (1e-3 x max|chunked|), each kernel call
+    against plain on its own inputs, step times with per-layer
+    checkpointing on and off and their peak memory, a profile of one
+    step, and the flash call's times. Returns the path's flash record."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_plain_call)
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train_step import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.optim.adamw import AdamW, AdamWState, cosine_schedule
+
+    dev = torch.device("cuda")
+    cfg = get_config("llama3.2-1b")
+    width = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.d_head, cfg.d_ff, cfg.vocab, cfg.tie_embeddings)
+    if width != (16, 2048, 32, 8, 64, 8192, 128256, True):
+        raise AssertionError(f"llama3.2-1b config {width}")
+    b, s = TRAIN_KW["batch"], TRAIN_KW["seq"]
+    tokens = b * s
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    ckpt_bytes = 3 * TRAIN_PARAMS * 4 + 4  # params, m, v in fp32; count
+    free = shutil.disk_usage(ckpt_dir).free
+    print(f"{TRAIN_PATH}: free disk under {ckpt_dir}: {free / 1e9:.3f} GB; "
+          f"one checkpoint holds {ckpt_bytes / 1e9:.3f} GB (params, m, v in "
+          f"fp32), the runs keep two at once")
+    if free < 2.2 * ckpt_bytes:
+        raise AssertionError(f"{TRAIN_PATH}: {free / 1e9:.3f} GB of disk "
+                             f"free, two checkpoints need "
+                             f"{2 * ckpt_bytes / 1e9:.3f}")
+
+    # host-clock timers: a step (ending in a synchronize) inside train(),
+    # the checkpoint's device -> host copy, its write and its restore
+    step_s, snap_s, write_s, restore_s = [], [], [], []
+    real_make = train_mod.make_train_step
+
+    def timed_make(api, opt, microbatches=1):
+        step = real_make(api, opt, microbatches)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    def timing(method, times):
+        def timed(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = method(self, *args, **kw)
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    patches = [(train_mod, "make_train_step", timed_make),
+               (Checkpointer, "_snapshot",
+                timing(Checkpointer._snapshot, snap_s)),
+               (Checkpointer, "_write", timing(Checkpointer._write, write_s)),
+               (Checkpointer, "restore",
+                timing(Checkpointer.restore, restore_s))]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    train_kw = dict(TRAIN_KW, ckpt_dir=str(ckpt_dir), seed=seed,
+                    log_every=1)
+    fkernel.launches = 0
+    skernel.launches = 0
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params_a, losses_a = train_mod.train("llama3.2-1b", **train_kw)
+            train_a_s = time.perf_counter() - t0
+            peak_train = torch.cuda.max_memory_allocated()
+            steps_a = list(step_s)
+            ckpt_files = sum(f.stat().st_size
+                             for f in (ckpt_dir / "step_3").iterdir())
+            # a run killed after its step-3 checkpoint: step 6's never
+            # committed, so the restart resumes from step 3
+            shutil.rmtree(ckpt_dir / "step_6")
+            t0 = time.perf_counter()
+            params_b, losses_b = train_mod.train("llama3.2-1b", **train_kw)
+            train_b_s = time.perf_counter() - t0
+        nondet = sorted({str(w.message).split(" does not have")[0]
+                         for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+    n_params = sum(p.numel() for p in params_a.parameters())
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"{TRAIN_PATH}: {n_params} parameters")
+    if fkernel.launches or skernel.launches:
+        raise AssertionError(f"{TRAIN_PATH}: training launched flash "
+                             f"{fkernel.launches}, SSD {skernel.launches}")
+    ln_v = math.log(cfg.vocab)
+    if len(losses_a) != 6 or not all(map(math.isfinite, losses_a)) \
+            or abs(losses_a[0] - ln_v) > 0.5:
+        raise AssertionError(f"{TRAIN_PATH} losses {losses_a} (ln V "
+                             f"{ln_v:.4f})")
+    step_ms = statistics.median(steps_a[1:]) * 1e3
+    print(f"{TRAIN_PATH}: {n_params} parameters (fp32, "
+          f"{n_params * 4 / 1e9:.3f} GB), {b} x {s} tokens a step in "
+          f"{TRAIN_KW['microbatches']} microbatches; losses "
+          f"{[round(x, 6) for x in losses_a]} (ln V = {ln_v:.4f}); "
+          f"train() {train_a_s:.3f} s for 6 steps and 2 checkpoints")
+    print(f"time {TRAIN_PATH} step: {step_ms:.3f} ms (host clock after "
+          f"synchronize, median of steps 2-6; step 1 "
+          f"{steps_a[0] * 1e3:.3f} ms), {tokens / step_ms * 1e3:.1f} "
+          f"tokens/s; peak device memory {peak_train / 1e9:.3f} GB")
+    # the work a step must do: 6 N T for the matmul parameters (the tied
+    # embedding counts once, as the LM head) and the causal attention,
+    # forward and backward; per-layer recomputation and the recomputed LM
+    # head add to what runs, not to the bound
+    n_norm = (2 * cfg.n_layers + 1) * cfg.d_model
+    attn = 3 * cfg.n_layers * b * cfg.n_heads * 2 * cfg.d_head * s * (s + 1)
+    flop = 6 * (n_params - n_norm) * tokens + attn
+    remat = (2 * (n_params - n_norm - cfg.vocab_padded * cfg.d_model)
+             * tokens + attn / 3)
+    print(f"  bound {TRAIN_PATH} step: {flop / 1e12:.3f} TFLOP (6 N T "
+          f"{6 * (n_params - n_norm) * tokens / 1e12:.3f}, causal attention "
+          f"{attn / 1e12:.3f}) at 67 TFLOP/s fp32: "
+          f"{flop / FP32_TFLOPS * 1e3:.3f} ms, the step at "
+          f"{flop / FP32_TFLOPS * 1e3 / step_ms * 100:.2f}%; the per-layer "
+          f"recomputation adds {remat / 1e12:.3f} TFLOP that run")
+    print(f"  checkpoint {TRAIN_PATH}: {ckpt_files} bytes on disk a step; "
+          f"device -> host copy (blocking in save_async) "
+          f"{[round(x, 3) for x in snap_s]} s; write + md5 (in the "
+          f"background) {[round(x, 3) for x in write_s]} s; restore "
+          f"(read + md5 + host -> device) {[round(x, 3) for x in restore_s]}"
+          f" s; the restarted train() {train_b_s:.3f} s")
+    if losses_b == losses_a[3:] and all(
+            torch.equal(x, y) for x, y in zip(params_a.parameters(),
+                                              params_b.parameters())):
+        print(f"{TRAIN_PATH} restart from step 3: losses of steps 4-6 and "
+              f"the final parameters bit-equal to the uninterrupted run's "
+              f"(deterministic algorithms; operations without a "
+              f"deterministic CUDA path: {nondet or 'none'})")
+    else:
+        print(f"{TRAIN_PATH} restart from step 3: not bit-equal; operations "
+              f"without a deterministic CUDA path: {nondet or 'none'}; held "
+              f"within 1e-5 x max")
+        worst = max(abs(x - y) / abs(y)
+                    for x, y in zip(losses_b, losses_a[3:]))
+        if len(losses_b) != 3 or worst > 1e-5:
+            raise AssertionError(f"restart losses {losses_b} against "
+                                 f"{losses_a[3:]}")
+        perr = max(compare(f"restart {name}", y.detach(), x.detach(),
+                           rel=1e-5)[0]
+                   for (name, x), y in zip(params_a.named_parameters(),
+                                           params_b.parameters()))
+        print(f"  restart losses within {worst:.3e} (relative), parameters "
+              f"within max|err| {perr:.3e}")
+    del params_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the trained weights served: the end of the counted path -------
+    api = build_model(cfg, dtype=torch.float32)
+    prompt = make_batch(cfg, b, s, device=dev,
+                        generator=torch.Generator().manual_seed(seed + 15))
+    prompt.pop("labels")
+    calls = []
+    cuda_call = fops.flash_attention_cuda_call
+
+    def recording_call(q, k, v, *, causal=True, **kw):
+        out = cuda_call(q, k, v, causal=causal, **kw)
+        calls.append((q, k, v, causal, out))
+        return out
+
+    fops.flash_attention_cuda_call = recording_call
+    try:
+        out = generate(api, params_b, prompt, 8)
+    finally:
+        fops.flash_attention_cuda_call = cuda_call
+    launches = fkernel.launches
+    if launches != cfg.n_layers or skernel.launches:
+        raise AssertionError(f"{TRAIN_PATH}: {launches} flash launches "
+                             f"(want {cfg.n_layers}), SSD "
+                             f"{skernel.launches}")
+    toks = out["tokens"]
+    if tuple(toks.shape) != (b, 8) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_padded:
+        raise AssertionError(f"{TRAIN_PATH} tokens {tuple(toks.shape)}")
+    flash_err, flash_rel = 0.0, 0.0
+    for q, k, v, causal, got in calls:
+        err, scale = compare(f"{TRAIN_PATH} flash call vs plain", got,
+                             flash_attention_plain_call(q, k, v,
+                                                        causal=causal),
+                             rel=1e-3)
+        flash_err, flash_rel = max(flash_err, err), max(flash_rel,
+                                                        err / scale)
+    chunked = build_model(cfg, dtype=torch.float32, attn_impl="chunked")
+    logits, _ = api.prefill(params_b, prompt, s + 8)
+    want, _ = chunked.prefill(params_b, prompt, s + 8)
+    err, scale = compare(f"{TRAIN_PATH} prefill logits, flash vs chunked",
+                         logits, want, rel=1e-3)
+    print(f"{TRAIN_PATH} served: {launches} flash launches over the "
+          f"training and one {b} x {s} prefill (training none), tokens "
+          f"{tuple(toks.shape)}; each call within max|kernel-plain| "
+          f"{flash_err:.3e}, at most {flash_rel:.3e} of its max|plain|, "
+          f"on its own inputs (band 1e-3 x max|plain|); "
+          f"prefill logits max|flash-chunked| {err:.3e} (max|chunked| "
+          f"{scale:.3e}, band 1e-3 x max|chunked|)")
+    q, k, v, causal, _ = calls[0]
+    case = (b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.d_head, causal)
+    k_ms = time_ms(torch, lambda: fkernel.flash_attention_cuda_call(
+        q, k, v, causal=causal))
+    p_ms = time_ms(torch, lambda: flash_attention_plain_call(
+        q, k, v, causal=causal))
+    l_ms = time_ms(torch, lambda: torch.nn.functional.
+                   scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                enable_gqa=True))
+    fl, nbytes, bound, bound_by, _ = flash_cost(*case)
+    print(f"time {TRAIN_PATH} flash attention {case[:-1]} causal fp32 on "
+          f"the trained weights' layer-1 inputs: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, scaled_dot_product_attention {l_ms:.4f} "
+          f"ms; bound {bound:.4f} ms ({bound_by}), kernel at "
+          f"{bound / k_ms * 100:.2f}% of bound")
+    del calls, q, k, v, logits, want, chunked, out
+
+    # ---- one step at two microbatches against one at one, from step 6 --
+    total = TRAIN_KW["steps"]
+    opt = AdamW(learning_rate=cosine_schedule(3e-3, total // 10, total),
+                weight_decay=0.01)
+    state1 = opt.init(params_b)
+    restored, _ = Checkpointer(str(ckpt_dir)).restore((params_b, state1))
+    if restored != total:
+        raise AssertionError(f"restored step {restored}")
+    params2 = copy.deepcopy(params_b)
+    state2 = AdamWState([m.clone() for m in state1.m],
+                        [v.clone() for v in state1.v], state1.count.clone())
+    raw = SyntheticLM(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                      seed=seed).batch_at(total)
+    batch = {key: torch.from_numpy(raw[key]).to(dev)
+             for key in ("tokens", "labels")}
+    batch2 = {key: x.reshape(2, b // 2, s) for key, x in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    m1 = make_train_step(api, opt, 1)(params_b, state1, batch)
+    peak_m1 = torch.cuda.max_memory_allocated()
+    m2 = make_train_step(api, opt, 2)(params2, state2, batch2)
+    mb_err = max(compare(f"microbatches 2 vs 1 {name}", y.detach(),
+                         x.detach(), rel=1e-4)[0]
+                 / float(x.detach().abs().max())
+                 for (name, x), y in zip(params_b.named_parameters(),
+                                         params2.parameters()))
+    compare("microbatches 2 vs 1 loss", m2["loss"], m1["loss"], rel=1e-4)
+    print(f"{TRAIN_PATH} step 7 from the step-6 checkpoint, microbatches 2 "
+          f"against 1 on the same batch: loss {float(m2['loss']):.6f} vs "
+          f"{float(m1['loss']):.6f}; every parameter within "
+          f"max|err| / max|p| {mb_err:.3e} (band 1e-4); peak device memory "
+          f"at one microbatch {peak_m1 / 1e9:.3f} GB")
+    del params2, state2
+
+    # ---- per-layer checkpointing on and off: step time and peak memory --
+    def loss_without_remat(p, bt):
+        """``decoder_lm_loss`` of a dense decoder (no aux losses) with
+        ``decoder_stack``'s per-layer checkpointing off."""
+        x = transformer.embed_tokens(p, bt["tokens"], cfg)
+        positions = torch.arange(s, device=dev)[None].expand(x.shape[0], s)
+        x, _, _ = transformer.decoder_stack(p, x, cfg, positions,
+                                            attn_impl="chunked",
+                                            ssd_impl="chunked", remat=False)
+        ce = transformer.chunked_cross_entropy(p, x, bt["labels"], cfg)
+        return ce, {"ce": ce}
+
+    no_remat = dataclasses.replace(api, train_loss=loss_without_remat)
+    timed = {}
+    for label, a in (("on", api), ("off", no_remat)):
+        step = make_train_step(a, opt, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            metrics = step(params_b, state1, batch2)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        timed[label] = (statistics.median(times[1:]),
+                        torch.cuda.max_memory_allocated())
+    (on_ms, on_peak), (off_ms, off_peak) = timed["on"], timed["off"]
+    print(f"time {TRAIN_PATH} step, per-layer checkpointing on / off "
+          f"(host clock after synchronize, median of steps 2-3): "
+          f"{on_ms:.3f} / {off_ms:.3f} ms, peak device memory "
+          f"{on_peak / 1e9:.3f} / {off_peak / 1e9:.3f} GB; the "
+          f"recomputation adds {(on_ms - off_ms) / on_ms * 100:.2f}% of "
+          f"the step")
+    step = make_train_step(api, opt, 2)
+    trace_breakdown(torch, f"{TRAIN_PATH} step",
+                    lambda: step(params_b, state1, batch2), top=10)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # times: one call at the prefill's shape, 16 calls a prefill
+    n = cfg.n_layers
+    return {"name": "flash_attention", "path": TRAIN_PATH, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:111",
+            "launches": launches, "max_abs_err": flash_err, "ms": n * k_ms,
+            "plain_ms": n * p_ms, "bound_ms": n * bound,
+            "bound_by": bound_by, "library_ms": n * l_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    # phase 15's deterministic cuBLAS needs this before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -2566,6 +3056,12 @@ def main() -> int:
         torch, args.seed, compare, SEAMLESS_PATH, "seamless-m4t-large-v2",
         (24, 24, 1024, 16, 16, 64, 8192, 256206, None), SEAMLESS_PARAMS,
         SEAMLESS_CALLS, flash_err[SEAMLESS_PATH])
+    gc.collect()  # SeamlessM4T's tensors go before training's
+    torch.cuda.empty_cache()
+    smoke_train_steps(torch, args.seed, compare)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rec = training_phase(torch, args.seed, compare)
 
     # fused-span times: one batch-8 run of ResNet-18's five spans, one
     # batch-4 run of AlexNet's span, one batch-8 run of each policy plan's
@@ -2591,7 +3087,7 @@ def main() -> int:
         "bound_by": "operations" if rec["t_ops"] >= rec["t_mem"] else "bytes",
         "library_ms": rec["library_ms"],
     } for name, rec in paths.items()] + [flash_rec, ssd_rec, olmoe_rec,
-                                         seamless_rec]}))
+                                         seamless_rec, train_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

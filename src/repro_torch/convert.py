@@ -8,7 +8,9 @@ engine slices them by layer index. LM params become the port's
 reference's stacked periods unstacked into one layer each, every weight
 in the same (in, out) layout. Inputs may be
 numpy arrays (including bfloat16 ones), anything ``numpy.asarray``
-accepts, or tensors.
+accepts, or tensors. The way back, to the reference's stacked tree
+(``lm_params_to_numpy``, ``adamw_state_to_numpy``), lets the tests
+compare a gradient or an optimizer state leaf by leaf.
 """
 from __future__ import annotations
 
@@ -120,3 +122,70 @@ def lm_caches_from_numpy(caches, cfg, device: str | torch.device = "cpu"):
                             f"expected, got {type(cache).__name__}")
         out.append(unstack(cache, p, kind))
     return out
+
+
+def lm_params_to_numpy(params, cfg, tensors=None) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the reference's
+    stacked parameter tree, as numpy (bfloat16 as float32), of the port's
+    module ``params``; or, with ``tensors`` (one per parameter in
+    ``params.parameters()`` order, such as gradients or Adam moments),
+    the same tree of those tensors."""
+    named = list(params.named_parameters())
+    values = [p for _, p in named] if tensors is None else list(tensors)
+    if len(values) != len(named):
+        raise ValueError(f"{len(values)} tensors for {len(named)} "
+                         f"parameters")
+    tree: dict = {}
+    stacks: dict = {}  # a stacked leaf's path -> {layer index: array}
+
+    def put(path, value):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for (name, _), t in zip(named, values):
+        arr = t.detach().cpu()
+        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+        head, *rest = name.split(".")
+        if head == "layers":
+            l, rest = int(rest[0]), rest[1:]
+            path = ("periods", f"sub_{l % cfg.period}", *rest)
+            stacks.setdefault(path, {})[l // cfg.period] = arr
+        elif head in ("enc_layers", "dec_layers"):
+            path = (head[:3], "periods", "sub_0", *rest[1:])
+            stacks.setdefault(path, {})[int(rest[0])] = arr
+        elif head == "enc_norm":
+            put(("enc", "enc_norm"), arr)
+        else:
+            put((head,), arr)
+    for path, by_layer in stacks.items():
+        put(path, np.stack([by_layer[i] for i in range(len(by_layer))]))
+    return tree
+
+
+def adamw_state_from_numpy(state, cfg, device: str | torch.device = "cpu"):
+    """The reference's ``AdamWState`` (``m`` and ``v`` trees congruent
+    with the parameters, ``count``; arrays as numpy) as the port's
+    :class:`~repro_torch.optim.adamw.AdamWState` on ``device``: ``m`` and
+    ``v`` unstacked as :func:`lm_params_from_numpy` unstacks the
+    parameters, in the port's parameter order."""
+    from repro_torch.optim.adamw import AdamWState
+
+    def leaves(tree):
+        return [p.detach() for p in
+                lm_params_from_numpy(tree, cfg, device).parameters()]
+
+    return AdamWState(leaves(state.m), leaves(state.v),
+                      torch.tensor(int(np.asarray(state.count)),
+                                   dtype=torch.int32, device=device))
+
+
+def adamw_state_to_numpy(state, params, cfg) -> tuple:
+    """The port's ``AdamWState`` as the reference's ``(m, v, count)``:
+    ``m`` and ``v`` as stacked numpy trees shaped like the parameters of
+    ``params`` (the module the state belongs to), ``count`` an int32
+    scalar array."""
+    return (lm_params_to_numpy(params, cfg, state.m),
+            lm_params_to_numpy(params, cfg, state.v),
+            np.asarray(state.count.cpu().numpy(), np.int32))

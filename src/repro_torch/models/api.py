@@ -1,11 +1,13 @@
 """Unified model API for the LM side: ``build_model(cfg)`` returns a
-ModelAPI whose functions serve a decoder-only or an encoder-decoder LM
-(init, prefill, decode_step, init_caches), the port of
-``repro/models/api.py``.
+ModelAPI whose functions train and serve a decoder-only or an
+encoder-decoder LM (init, train_loss, prefill, decode_step, init_caches),
+the port of ``repro/models/api.py``.
 
-The reference's ``train_loss`` comes with training (ROADMAP Queue A
-3.2). The deprecated CNN shims (``span_executor``, ``stap_executor``)
-are not ported: their staged replacement is ``repro_torch.occam``.
+``train_loss`` always runs the chunked attention and SSD twins, whatever
+``attn_impl`` and ``ssd_impl`` say: the reference trains through XLA,
+not its Pallas kernels, and neither CUDA kernel has a backward. The
+deprecated CNN shims (``span_executor``, ``stap_executor``) are not
+ported: their staged replacement is ``repro_torch.occam``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ class ModelAPI:
     cfg: ModelCfg
     device: torch.device
     init: Callable[[torch.Generator], torch.nn.Module]
+    train_loss: Callable[..., tuple[torch.Tensor, dict]]
     prefill: Callable[..., tuple[torch.Tensor, Any]]
     decode_step: Callable[..., tuple[torch.Tensor, Any]]
     init_caches: Callable[..., Any]
@@ -51,7 +54,8 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
     the reference's default XLA path). ``ssd_impl`` picks prefill's SSD
     scan in Mamba layers the same way: ``"kernel"`` (the CUDA SSD-scan
     kernel on the GPU, its plain version on the CPU) or ``"chunked"`` (the
-    twin of the reference's ``ssd_chunked``). ``init(generator)`` draws
+    twin of the reference's ``ssd_chunked``); ``train_loss(params,
+    batch)`` always takes the chunked twins. ``init(generator)`` draws
     the parameters with a ``torch.Generator`` on ``device``. An
     encoder-decoder config (``cfg.is_enc_dec``) gets the enc-dec stack,
     whose prefill reads ``enc_embeds`` and ``tokens`` from the batch and
@@ -79,6 +83,7 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
             cfg=cfg,
             device=dev,
             init=init,
+            train_loss=lambda p, b: encdec.encdec_lm_loss(p, b, cfg),
             prefill=lambda p, b, s_max: encdec.encdec_prefill(
                 p, b, cfg, s_max, attn_impl=attn_impl),
             decode_step=lambda p, t, c, pos: encdec.encdec_decode_step(
@@ -91,6 +96,7 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
         cfg=cfg,
         device=dev,
         init=init,
+        train_loss=lambda p, b: transformer.decoder_lm_loss(p, b, cfg),
         prefill=lambda p, b, s_max: transformer.decoder_prefill(
             p, b, cfg, s_max, attn_impl=attn_impl, ssd_impl=ssd_impl),
         decode_step=lambda p, t, c, pos: transformer.decoder_decode_step(

@@ -12,9 +12,10 @@ layer, ``{"self": KVCache, "cross": CrossCache}``. The cross-attention
 K/V are computed from the encoder's output once, at prefill, and cached:
 a decode step reads them from the cache.
 
-Not ported yet: ``encdec_lm_loss``, with the training losses (ROADMAP
-Queue A 3.2). The reference's ``remat`` argument only matters under
-autodiff and is not taken.
+``encdec_lm_loss`` trains through the chunked attention twin (the CUDA
+kernel has no backward); with ``remat`` (the reference's default),
+``encoder_forward`` and ``decoder_forward`` checkpoint each layer under
+autograd, as the reference's ``jax.checkpoint`` of its scan body.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from torch import nn
 from repro_torch.configs.base import ModelCfg
 
 from . import layers
-from .layers import KVCache
-from .transformer import DecoderLayer, unembed
+from .layers import KVCache, maybe_checkpoint
+from .transformer import DecoderLayer, chunked_cross_entropy, unembed
 
 
 class CrossCache(NamedTuple):
@@ -107,20 +108,31 @@ def init_encdec_params(cfg: ModelCfg, generator: torch.Generator,
 # Forward
 # --------------------------------------------------------------------------
 
+def _enc_layer(layer: DecoderLayer, x, cfg: ModelCfg, positions,
+               attn_impl: str):
+    h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
+    y, _ = layers.attention_sublayer(layer.attn, h, cfg, positions,
+                                     causal=False, attn_impl=attn_impl)
+    x = x + y
+    h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
+    return x + layers.ffn_sublayer(layer.ffn, h)
+
+
 def encoder_forward(params: EncDecParams, enc_embeds: torch.Tensor,
-                    cfg: ModelCfg, attn_impl: str = "flash") -> torch.Tensor:
+                    cfg: ModelCfg, attn_impl: str = "flash",
+                    remat: bool = True) -> torch.Tensor:
     """Non-causal self-attention with RoPE at positions 0..S_enc-1 and a
-    dense FFN per layer, then the encoder's RMSNorm."""
+    dense FFN per layer (each layer checkpointed under autograd with
+    ``remat``), then the encoder's RMSNorm."""
     x = enc_embeds
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for layer in params.enc_layers:
-        h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
-        y, _ = layers.attention_sublayer(layer.attn, h, cfg, positions,
-                                         causal=False, attn_impl=attn_impl)
-        x = x + y
-        h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
-        x = x + layers.ffn_sublayer(layer.ffn, h)
+        if remat:
+            x = maybe_checkpoint(_enc_layer, layer, x, cfg, positions,
+                                 attn_impl)
+        else:
+            x = _enc_layer(layer, x, cfg, positions, attn_impl)
     return layers.rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -135,15 +147,40 @@ def _cross_kv(pp, memory: torch.Tensor, cfg: ModelCfg):
     return k, v
 
 
+def _dec_layer(layer: CrossDecoderLayer, x, memory, cfg: ModelCfg,
+               positions, pc, cache_pos, attn_impl: str):
+    h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
+    y, _ = layers.attention_sublayer(
+        layer.attn, h, cfg, positions, causal=True,
+        cache=None if pc is None else pc["self"], cache_pos=cache_pos,
+        attn_impl=attn_impl)
+    x = x + y
+    h = layers.rms_norm(x, layer.norm_x, cfg.norm_eps)
+    if memory is not None:
+        ck, cv = _cross_kv(layer.xattn, memory, cfg)
+        if pc is not None:
+            pc["cross"].k.copy_(ck)
+            pc["cross"].v.copy_(cv)
+    else:
+        ck, cv = pc["cross"]
+    y, _ = layers.attention_sublayer(layer.xattn, h, cfg, positions,
+                                     causal=False, kv_override=(ck, cv),
+                                     attn_impl=attn_impl)
+    x = x + y
+    h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
+    return x + layers.ffn_sublayer(layer.ffn, h)
+
+
 def decoder_forward(params: EncDecParams, tokens: torch.Tensor,
                     memory: torch.Tensor | None, cfg: ModelCfg, *,
                     caches: list | None = None, cache_pos: int | None = None,
-                    attn_impl: str = "flash"):
+                    attn_impl: str = "flash", remat: bool = True):
     """Returns (x, new_caches). ``memory`` is the encoder's output, or
     None in a decode step, which reads the cross K/V from ``caches``.
     With caches, a prefill writes the self-attention prefix and the cross
     K/V into them in place; a decode step (one token at ``cache_pos``)
-    inserts its self K/V."""
+    inserts its self K/V. Without caches and with ``remat``, each layer
+    is checkpointed under autograd."""
     x = params.embed[tokens]
     b, s, _ = x.shape
     if cache_pos is not None and s == 1:
@@ -155,33 +192,30 @@ def decoder_forward(params: EncDecParams, tokens: torch.Tensor,
         raise ValueError(f"{len(caches)} caches for "
                          f"{len(params.dec_layers)} decoder layers")
     for l, layer in enumerate(params.dec_layers):
-        pc = None if caches is None else caches[l]
-        h = layers.rms_norm(x, layer.norm1, cfg.norm_eps)
-        y, _ = layers.attention_sublayer(
-            layer.attn, h, cfg, positions, causal=True,
-            cache=None if pc is None else pc["self"], cache_pos=cache_pos,
-            attn_impl=attn_impl)
-        x = x + y
-        h = layers.rms_norm(x, layer.norm_x, cfg.norm_eps)
-        if memory is not None:
-            ck, cv = _cross_kv(layer.xattn, memory, cfg)
-            if pc is not None:
-                pc["cross"].k.copy_(ck)
-                pc["cross"].v.copy_(cv)
+        args = (layer, x, memory, cfg, positions,
+                None if caches is None else caches[l], cache_pos, attn_impl)
+        if caches is None and remat:
+            x = maybe_checkpoint(_dec_layer, *args)
         else:
-            ck, cv = pc["cross"]
-        y, _ = layers.attention_sublayer(layer.xattn, h, cfg, positions,
-                                         causal=False, kv_override=(ck, cv),
-                                         attn_impl=attn_impl)
-        x = x + y
-        h = layers.rms_norm(x, layer.norm2, cfg.norm_eps)
-        x = x + layers.ffn_sublayer(layer.ffn, h)
+            x = _dec_layer(*args)
     return x, caches
 
 
 # --------------------------------------------------------------------------
-# Serving entry points
+# Loss / serving entry points
 # --------------------------------------------------------------------------
+
+def encdec_lm_loss(params: EncDecParams, batch: dict, cfg: ModelCfg):
+    """Decoder CE over ``labels`` given ``enc_embeds`` and ``tokens``,
+    through the chunked attention twin. Returns ``(ce, {"ce": ce})``."""
+    device = params.embed.device
+    memory = encoder_forward(params, batch["enc_embeds"].to(device), cfg,
+                             attn_impl="chunked")
+    x, _ = decoder_forward(params, batch["tokens"].to(device), memory, cfg,
+                           attn_impl="chunked")
+    ce = chunked_cross_entropy(params, x, batch["labels"].to(device), cfg)
+    return ce, {"ce": ce}
+
 
 def init_encdec_caches(cfg: ModelCfg, batch: int, s_max: int, s_enc: int,
                        dtype=torch.bfloat16, device=None) -> list:

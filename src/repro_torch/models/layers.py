@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -95,7 +96,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Loops over kv chunks carrying (m, l, acc), the dependence closure of
     the query block, so no more than one (B, H, Sq, chunk) score block is
     held at once. The causal mask is bottom-aligned with offset Skv - Sq
-    (not clamped), as in the reference.
+    (not clamped), as in the reference. Under autograd each chunk is
+    checkpointed, as the reference's: the backward recomputes the score
+    block instead of keeping one per chunk.
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -103,29 +106,51 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("repeat kv heads before chunked_attention")
     qf = q.float() / math.sqrt(d)
     chunk = min(chunk, sk)
-    q_ids = torch.arange(sq, device=q.device)[:, None]
-    offset = sk - sq  # bottom-aligned causal (prefill continuation safe)
     m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    # bottom-aligned causal (prefill continuation safe)
+    offset = sk - sq if causal else None
     for start in range(0, sk, chunk):
-        kb = k[:, start:start + chunk].float()
-        vb = v[:, start:start + chunk].float()
-        s = torch.einsum("bshd,bkhd->bhsk", qf, kb)
-        if causal:  # the last chunk may be short: no padded tail to mask
-            kv_ids = torch.arange(start, start + kb.shape[1],
-                                  device=q.device)[None, :]
-            s = s.masked_fill(kv_ids > q_ids + offset, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhsk,bkhd->bhsd", p, vb)
-        m = m_new
+        m, l, acc = maybe_checkpoint(
+            _attention_chunk_step, qf, k[:, start:start + chunk],
+            v[:, start:start + chunk], m, l, acc, start, offset)
     l = torch.where(l == 0.0, 1.0, l)
     out = (acc / l[..., None]).transpose(1, 2)  # (B, S, H, D)
     return out.to(q.dtype)
+
+
+def _attention_chunk_step(qf, kc, vc, m, l, acc, start: int,
+                          offset: int | None):
+    """One KV chunk of :func:`chunked_attention`: its (B, H, Sq, chunk)
+    score block folded into the carried (m, l, acc). ``offset`` is the
+    causal mask's (Skv - Sq), None when not causal."""
+    kb, vb = kc.float(), vc.float()
+    s = torch.einsum("bshd,bkhd->bhsk", qf, kb)
+    if offset is not None:  # the last chunk may be short: no padded tail
+        q_ids = torch.arange(qf.shape[1], device=qf.device)[:, None]
+        kv_ids = torch.arange(start, start + kb.shape[1],
+                              device=qf.device)[None, :]
+        s = s.masked_fill(kv_ids > q_ids + offset, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bhsk,bkhd->bhsd", p, vb)
+    return m_new, l, acc
+
+
+def maybe_checkpoint(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+    when autograd records: the backward recomputes ``fn``'s intermediates
+    instead of keeping them, as the reference's ``jax.checkpoint``. The
+    models draw no random numbers, so no RNG state is kept for the
+    recomputation."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

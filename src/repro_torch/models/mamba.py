@@ -9,9 +9,19 @@ reference's ``lax.scan`` over chunks. Decode is the single-step recurrence
 on the cached state, as in the reference, and launches no kernel.
 
 Separate in-projections per component (z, x, B, C, dt) keep the
-reference's parameter names. The reference's ``shard`` calls and its
-``jax.checkpoint`` around the chunk step are dropped: the port runs on one
-device and has no backward yet.
+reference's parameter names. The reference's ``shard`` calls are dropped:
+the port runs on one device. Its ``jax.checkpoint`` around the chunk step
+becomes ``torch.utils.checkpoint`` under autograd (training runs
+``ssd_impl="chunked"``: the CUDA kernel has no backward, as the Pallas
+one has none).
+
+The intra-chunk decay keeps the reference's ``where(mask, exp(seg), 0)``:
+above the diagonal ``seg`` is a positive sum of ``-a``, and once it
+passes about 88, ``exp(seg)`` is inf in fp32. The forward stays finite
+(``where`` drops the value), but the backward computes ``0 * inf = NaN``
+for the gradient of ``a``: at a chunk of 256 and ``a`` about -0.8 a step
+(Mamba2-1.3B at its initialization) the gradient is not finite, in the
+reference as here. A fix belongs in both packages at once.
 """
 from __future__ import annotations
 
@@ -24,7 +34,7 @@ from torch.nn import functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
-from .layers import normal_init, rms_norm, row_parallel
+from .layers import maybe_checkpoint, normal_init, rms_norm, row_parallel
 
 SSD_IMPLS = ("kernel", "chunked")
 
@@ -128,8 +138,8 @@ def ssd_chunked(x, a, b, c, *, n_groups: int, chunk: int, state0=None):
                             device=x.device)
     ys = []
     for i in range(nc):
-        state, y = _ssd_chunk_step(state, xg[:, i], ag[:, i], bg[:, i],
-                                   cg[:, i], chunk)
+        state, y = maybe_checkpoint(_ssd_chunk_step, state, xg[:, i],
+                                    ag[:, i], bg[:, i], cg[:, i], chunk)
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(bsz, t + pad, h, p)[:, :t]
     return y, state

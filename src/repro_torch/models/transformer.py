@@ -10,10 +10,16 @@ order (layer ``p * period + i`` is the reference's
 ``periods["sub_<i>"][p]``). Each layer is an attention or SSM (Mamba-2)
 mixer, with a dense SwiGLU FFN, an MoE FFN (``models/moe.py``) or none.
 
-Not ported yet: the training losses ``chunked_cross_entropy`` and
-``decoder_lm_loss`` (ROADMAP Queue A 3.2); ``param_spec_tree``,
-``shard_caches`` and ``cache_axes`` (TPU-mesh sharding, Queue A 3.5).
-``_carry_barrier`` is an XLA scheduling pin with no eager counterpart.
+The training losses (``chunked_cross_entropy``, ``decoder_lm_loss``)
+run the chunked attention and SSD twins, as the reference trains through
+XLA and not its Pallas kernels; under autograd each layer, each KV chunk,
+each SSD chunk and each cross-entropy chunk is checkpointed, as the
+reference's ``jax.checkpoint``s (the reference nests per-period and
+per-sublayer checkpoints; here a layer is a sublayer, so one per layer).
+
+Not ported yet: ``param_spec_tree``, ``shard_caches`` and ``cache_axes``
+(TPU-mesh sharding, ROADMAP Queue A 3.5). ``_carry_barrier`` is an XLA
+scheduling pin with no eager counterpart.
 """
 from __future__ import annotations
 
@@ -21,11 +27,12 @@ import math
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelCfg
 
 from . import layers, mamba, moe
-from .layers import KVCache
+from .layers import KVCache, maybe_checkpoint
 from .mamba import SSMCache
 
 AUX_LOSSES = ("load_balance_loss", "router_z_loss")
@@ -145,14 +152,18 @@ def _sublayer_apply(layer: DecoderLayer, x, cfg: ModelCfg, positions,
 
 def decoder_stack(params: DecoderParams, x, cfg: ModelCfg, positions,
                   caches: list | None = None, cache_pos: int | None = None,
-                  attn_impl: str = "flash", ssd_impl: str = "kernel"):
+                  attn_impl: str = "flash", ssd_impl: str = "kernel",
+                  remat: bool = True):
     """Run all layers. Returns (x, new_caches, aux_losses).
 
     Without caches this is the no-cache forward; with them, the serving
     path (prefill when x has more than one token, else a decode step at
     ``cache_pos``), which fills the caches in place. ``aux_losses`` sums
     each of ``AUX_LOSSES`` over the MoE layers (0-d fp32 tensors, zeros
-    without MoE layers), as the reference's.
+    without MoE layers), as the reference's. With ``remat`` (the
+    reference's default), the no-cache forward checkpoints each layer
+    under autograd: the backward keeps only the layers' inputs and
+    recomputes one layer at a time.
     """
     if caches is not None and len(caches) != len(params.layers):
         raise ValueError(f"{len(caches)} caches for "
@@ -161,9 +172,15 @@ def decoder_stack(params: DecoderParams, x, cfg: ModelCfg, positions,
     aux_losses = {name: torch.zeros((), dtype=torch.float32,
                                     device=x.device) for name in AUX_LOSSES}
     for l, layer in enumerate(params.layers):
-        x, nc, aux = _sublayer_apply(layer, x, cfg, positions,
-                                     None if caches is None else caches[l],
-                                     cache_pos, attn_impl, ssd_impl)
+        if caches is None and remat:
+            x, nc, aux = maybe_checkpoint(_sublayer_apply, layer, x, cfg,
+                                          positions, None, cache_pos,
+                                          attn_impl, ssd_impl)
+        else:
+            x, nc, aux = _sublayer_apply(
+                layer, x, cfg, positions,
+                None if caches is None else caches[l], cache_pos,
+                attn_impl, ssd_impl)
         if new_caches is not None:
             new_caches.append(nc)
         for name, value in aux.items():
@@ -182,8 +199,61 @@ def unembed(params: DecoderParams, x, cfg: ModelCfg):
 
 
 # --------------------------------------------------------------------------
-# Serving entry points
+# Losses / serving entry points
 # --------------------------------------------------------------------------
+
+def _ce_chunk(xc, lc, w):
+    """Summed CE and count of one chunk's valid (label >= 0) tokens."""
+    valid = (lc >= 0).float()
+    logits = (xc @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.clamp_min(0).long()[..., None])[..., 0]
+    return ((lse - ll) * valid).sum(), valid.sum()
+
+
+def chunked_cross_entropy(params, x, labels, cfg: ModelCfg,
+                          chunk: int = 1024) -> torch.Tensor:
+    """Final-norm + LM head + CE over sequence chunks, each checkpointed
+    under autograd, so the (B, S, V) logits are never whole. Labels of -1
+    (and the padding of a last short chunk) count for nothing; the mean
+    is over the valid tokens."""
+    b, s, d = x.shape
+    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, s + pad, chunk):
+        t, c = maybe_checkpoint(_ce_chunk, x[:, start:start + chunk],
+                                labels[:, start:start + chunk], w)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def decoder_lm_loss(params: DecoderParams, batch: dict, cfg: ModelCfg,
+                    lb_coef: float = 0.01, z_coef: float = 1e-3):
+    """Next-token CE (+ MoE aux). batch: ``tokens`` (or ``embeds``),
+    ``labels``, ``positions``? Returns ``(loss, {"ce", *AUX_LOSSES})``.
+    Runs the chunked attention and SSD twins (the CUDA kernels have no
+    backward)."""
+    device = params.embed.device
+    if "embeds" in batch:
+        x = batch["embeds"].to(device)
+    else:
+        x = embed_tokens(params, batch["tokens"].to(device), cfg)
+    b, s = x.shape[0], x.shape[1]
+    positions = _positions(batch, b, s, device)
+    x, _, aux = decoder_stack(params, x, cfg, positions, attn_impl="chunked",
+                              ssd_impl="chunked")
+    ce = chunked_cross_entropy(params, x, batch["labels"].to(device), cfg)
+    loss = (ce + lb_coef * aux["load_balance_loss"]
+            + z_coef * aux["router_z_loss"])
+    return loss, {"ce": ce, **aux}
+
 
 def init_decoder_caches(cfg: ModelCfg, batch: int, s_max: int,
                         dtype=torch.bfloat16, device=None) -> list:

@@ -29,6 +29,7 @@ COPIES = [
     "occam/audit/concurrency.py", "occam/audit/__main__.py",
     "occam/serve/queue.py", "occam/serve/metrics.py",
     "occam/serve/router.py", "occam/serve/__init__.py",
+    "data/pipeline.py", "runtime/elastic.py",
 ] + sorted(f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob(
     "*.py") if p.name not in ("__init__.py", "base.py"))
 

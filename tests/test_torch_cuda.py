@@ -3,9 +3,9 @@ SSD-scan kernels against their plain PyTorch versions, a deployment on the
 GPU against the same deployment on the CPU, the fused-span kernel at a
 pinned cluster of 8, serving sessions' CUDA graphs against eager runs,
 STAP pipelines on one GPU against the single-device run, the MoE layer on
-the GPU against the CPU, and the LMs' (Llama, Mamba2, OLMoE and the
+the GPU against the CPU, the LMs' (Llama, Mamba2, OLMoE and the
 SeamlessM4T encoder-decoder) prefill and decode on the GPU against the
-CPU.
+CPU, and a smoke train step on the GPU against the CPU.
 
 This file imports neither JAX nor ``repro``, so it runs on a GPU machine
 that has only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda
@@ -29,9 +29,12 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_cb_plain,
                                               ssd_scan_plain_call)
 from repro_torch.launch.serve import generate
+from repro_torch.launch.train import train
+from repro_torch.launch.train_step import make_train_step
 from repro_torch.models import cnn, moe
 from repro_torch.models.api import build_model, make_batch
 from repro_torch.occam.calibrate import timers
+from repro_torch.optim.adamw import AdamW
 
 C, P = "conv", "pool"
 
@@ -809,3 +812,58 @@ def test_ssd_kernel_two_ctas_per_sm_at_full_width(cuda):
     assert shape["ctas_per_sm"] >= 2
     assert shape["cb_ctas"] == 4 * 1 * 16
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "olmoe-1b-7b",
+                                  "seamless-m4t-large-v2"])
+def test_smoke_train_step_on_gpu_matches_cpu(cuda, arch, microbatches):
+    """The same parameters and batch on both devices, one
+    ``make_train_step`` each (AdamW at its defaults): the loss, grad_norm
+    and each parameter's Adam moments (the step's gradients) within
+    1e-4 x max|cpu|, the updated parameters within 1e-4 x max|cpu| over
+    the model (Adam's first step moves an entry by about lr whatever its
+    gradient, so one within rounding of 0 may step differently)."""
+    cfg = get_smoke(arch)
+    cpu_api = build_model(cfg, dtype=torch.float32, device="cpu")
+    gpu_api = build_model(cfg, dtype=torch.float32)
+    params = cpu_api.init(torch.Generator().manual_seed(0))
+    gpu_params = copy.deepcopy(params).to(cuda)
+    batch = make_batch(cfg, 4, 32, generator=torch.Generator().manual_seed(2))
+    if microbatches > 1:
+        batch = {k: v.reshape(microbatches, 4 // microbatches, *v.shape[1:])
+                 for k, v in batch.items()}
+    out, states = [], []
+    for api, p in ((cpu_api, params), (gpu_api, gpu_params)):
+        opt = AdamW()
+        states.append(opt.init(p))
+        out.append(make_train_step(api, opt, microbatches)(
+            p, states[-1], {k: v.to(api.device) for k, v in batch.items()}))
+    for name in ("loss", "grad_norm"):
+        torch.testing.assert_close(out[1][name].cpu(), out[0][name],
+                                   rtol=1e-4, atol=1e-4)
+    for want, got in zip(states[0].m + states[0].v,
+                         states[1].m + states[1].v):
+        assert float((got.cpu() - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+    scale = max(float(p.detach().abs().max()) for p in params.parameters())
+    for (name, want), got in zip(params.named_parameters(),
+                                 gpu_params.parameters()):
+        err = float((got.detach().cpu() - want.detach()).abs().max())
+        assert err <= 1e-4 * scale, name
+
+
+@pytest.mark.cuda
+def test_train_smoke_on_gpu_restarts_exactly(cuda, tmp_path):
+    """``train(device=None)`` runs on the GPU; an interrupted run resumed
+    from its checkpoint gives the uninterrupted run's last losses."""
+    kw = dict(smoke=True, batch=4, seq=32, ckpt_every=3, log_every=1000)
+    params, full = train("llama3.2-1b", steps=6, ckpt_dir=str(tmp_path / "a"),
+                         **kw)
+    assert params.embed.device.type == "cuda"
+    train("llama3.2-1b", steps=3, ckpt_dir=str(tmp_path / "b"),
+          total_steps=6, **kw)
+    _, resumed = train("llama3.2-1b", steps=6, ckpt_dir=str(tmp_path / "b"),
+                       **kw)
+    np.testing.assert_allclose(resumed, full[3:], rtol=1e-5)

@@ -40,7 +40,12 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.occam.audit.concurrency",
                 "repro_torch.occam.audit.__main__",
                 "repro_torch.occam.serve", "repro_torch.occam.serve.engine",
-                "repro_torch.occam.serve.router"):
+                "repro_torch.occam.serve.router",
+                "repro_torch.optim.adamw", "repro_torch.optim.compression",
+                "repro_torch.data.pipeline",
+                "repro_torch.checkpoint.checkpointer",
+                "repro_torch.runtime.elastic", "repro_torch.launch.train_step",
+                "repro_torch.launch.train"):
         assert mod in mods
     code = (
         "import importlib, sys\n"
