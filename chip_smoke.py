@@ -245,6 +245,49 @@ full published width (fp32, random weights from ``--seed``):
    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts, which deterministic
    cuBLAS needs.
 
+Execution across mesh positions, every position on the one GPU:
+
+16. Path ``llama3.2-1b-pipeline`` (after training's tensors are freed):
+   ``runtime.pipeline.plan_stages`` on Llama-3.2-1B's 16 layers (243.3 MB
+   of fp32 weights each, 4.19 MB of K/V a microbatch, 2 x params x 1024
+   FLOP plus the causal attention, 8.39 MB boundaries, 1.0e9 B a stage,
+   67 TFLOP/s, 3 extra chips) must give stages (0,4), (4,8), (8,12),
+   (12,16) and replicas (2, 2, 2, 1). Eight microbatches of 1 x 1024
+   embedded tokens run through ``pipeline_forward``, each stage four
+   ``DecoderLayer``s through ``_sublayer_apply`` on the flash kernel:
+   without a plan on a 4-position stage mesh (11 ticks) and with the STAP
+   plan on its (4, 2) mesh. Each run: exactly 128 flash launches (16
+   layers x 8 microbatches), held bit for bit against ``decoder_stack``
+   run microbatch by microbatch (else within 1e-5 x max, the difference
+   printed), its hops counted (calls, bytes copied, bytes of zeroed
+   receive buffers); the last microbatch's final-norm + tied-head logits
+   against ``decoder_prefill`` of its tokens (1e-3 x max). Then one
+   stage's flash call on its captured inputs against plain, timed beside
+   plain, ``scaled_dot_product_attention`` and its bound; both runs'
+   host-clock ms beside the 8 microbatches run one after another (six
+   samples each, taken in turns), the run's FLOP bound at 67 TFLOP/s,
+   one tick's hop (CUDA events), peak memory, and a profile of each of
+   the three (device idle share).
+17. Path ``olmoe-1b-7b-ep`` (run right after phase 12, on its model):
+   request 1's prefill inside ``use_shardings(ShardCtx(mesh))``, ``mesh``
+   a (1, 4) ("data", "model") ``DeviceMesh``: the MoE layers take
+   ``impl="ep_shard_map"``, each model position 16 of the 64 experts as
+   views of the weights (checked by storage offset), exactly 16 flash
+   launches; the logits against the same prefill without a context
+   (1e-3 x max|local|), the routing decisions that differ counted and
+   the four positions' routings equal; the prefill's ms against
+   ``"local"``'s, the partial sums' adds read from a trace of the EP
+   prefill (their count and device ms), a profile; the flash call
+   timed as in phase 12. Then ``optim.compression.allreduce_compressed``
+   over the 4 positions of a ("data",) mesh on the GPU, on the gradients
+   of the Llama smoke config's loss on four data shards of one batch:
+   int8 payloads and int32 sums equal to the CPU port's, means and
+   residuals within 1e-6 of the magnitudes they come from (the mean's
+   max; the gradient's, since a residual x - q s cancels), the EF mean
+   within its element-wise bound of the plain fp32 mean,
+   sum (|q_p| |mean(s) - s_p| + s_p / 2) / n, with the tensors within one
+   EF step (max|g| / 127) counted.
+
 The line before the last is the kernels' JSON summary, one record per
 path with that path's launches, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible GPU, or outside a
@@ -408,6 +451,25 @@ TRAIN_PATH = "llama3.2-1b-train"
 TRAIN_PARAMS = 1_235_814_400
 TRAIN_KW = dict(smoke=False, steps=6, batch=4, seq=1024, microbatches=2,
                 ckpt_every=3)
+# phase 16: Llama-3.2-1B pipelined over 4 stages of 4 layers; a layer's
+# parameters (attention 4 x 2048 x 2048 less the GQA K/V's 3/4, FFN
+# 3 x 2048 x 8192, two norms), one microbatch's K and V (1 x 1024, 8 KV
+# heads of 64, fp32) and the boundary map (1 x 1024 x 2048, fp32)
+PIPE_PATH = "llama3.2-1b-pipeline"
+PIPE_WIDTH = (16, 2048, 32, 8, 64, 8192, 128256)
+PIPE_LAYER_PARAMS = 60_821_504
+PIPE_LAYER_ACT = 4_194_304
+PIPE_BOUNDARY = 8_388_608
+PIPE_CAPACITY = 1.0e9
+PIPE_EXTRA_CHIPS = 3
+PIPE_MICROBATCHES = 8
+PIPE_SEQ = 1024
+PIPE_SPANS = ((0, 4), (4, 8), (8, 12), (12, 16))
+PIPE_REPLICAS = (2, 2, 2, 1)
+# phase 17: OLMoE-1B-7B's request 1 with its experts over 4 model
+# positions, and the compressed all-reduce over 4 data positions
+EP_PATH = "olmoe-1b-7b-ep"
+EP_MESH = (1, 4)
 
 
 def he_params(net, rng):
@@ -577,6 +639,25 @@ def trace_breakdown(torch, name, fn, top=8, ops=None):
         for label, ms in groups))
     for key, ms in sorted(launched.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:9.3f} ms {ms / busy_ms * 100:6.2f}% {key[:80]}")
+
+
+def op_device_ms(torch, fn, op, shapes):
+    """Profile one call of ``fn`` (after a warm-up), recording shapes:
+    the number of calls of the operator ``op`` whose leading inputs have
+    ``shapes``, and the device ms of the kernels those calls launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages(group_by_input_shape=True)
+            if e.key == op and [list(x) for x in
+                                e.input_shapes[:len(shapes)]] == shapes]
+    return (sum(e.count for e in hits),
+            sum(e.self_device_time_total for e in hits) / 1e3)
 
 
 def host_trace(torch, name, fn, top=10):
@@ -2088,7 +2169,8 @@ def routed_serving(torch, seed, compare, path, arch, width, n_params_want,
     routing decisions of both counted), then times: each kind of flash
     call (kernel, plain, ``scaled_dot_product_attention``, bound, launch
     shape; the kernel held against plain on the timed inputs), the prefill, a decode step, peak memory and a profile of one
-    prefill and one decode step. Returns the path's flash record."""
+    prefill and one decode step. Returns the path's flash record and
+    ``(api, params, prompts)`` for a later phase on the same model."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
@@ -2276,7 +2358,8 @@ def routed_serving(torch, seed, compare, path, arch, width, n_params_want,
                     lambda: api.prefill(params, prompt, s + g), ops=ops)
     trace_breakdown(torch, f"{path} decode step",
                     lambda: api.decode_step(params, tok, caches, s), ops=ops)
-    # times: one prefill of the first request, all its flash calls
+    # times: one prefill of the first request, all its flash calls; the
+    # model and prompts go back for a later phase on the same weights
     return {"name": "flash_attention", "path": path, "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
@@ -2286,7 +2369,7 @@ def routed_serving(torch, seed, compare, path, arch, width, n_params_want,
             "bound_ms": rec["bound_ms"],
             "bound_by": ("operations" if rec["t_ops"] >= rec["t_mem"]
                          else "bytes"),
-            "library_ms": rec["library_ms"]}
+            "library_ms": rec["library_ms"]}, (api, params, prompts)
 
 
 def smoke_train_steps(torch, seed, compare) -> None:
@@ -2729,6 +2812,454 @@ def training_phase(torch, seed, compare) -> dict:
             "bound_by": bound_by, "library_ms": n * l_ms}
 
 
+def flash_record(torch, compare, path, case, n, launches, err, qkv=None,
+                 seed=0, dev="cuda"):
+    """Time one flash call at ``case`` (B, Hq, Hkv, Sq, Skv, D, causal) on
+    ``qkv`` (default: random inputs from ``seed``), held against plain
+    (1e-3 x max|plain|), beside its plain version,
+    ``scaled_dot_product_attention`` and its bound, each counted ``n``
+    times (the calls of one unit of the path). Returns the path's flash
+    record, its ``max_abs_err`` the larger of ``err`` and this call's."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_plain_call)
+
+    b, hq, hkv, sq, sk, d, causal = case
+    if qkv is None:
+        gen = torch.Generator().manual_seed(seed)
+        qkv = [torch.randn(shape, generator=gen).to(dev)
+               for shape in ((b, hq, sq, d), (b, hkv, sk, d),
+                             (b, hkv, sk, d))]
+    q, k, v = qkv
+    plain = flash_attention_plain_call(q, k, v, causal=causal)
+    k_err, scale = compare(f"{path} flash call vs plain",
+                           fkernel.flash_attention_cuda_call(
+                               q, k, v, causal=causal), plain, rel=1e-3)
+    k_ms = time_ms(torch, lambda: fkernel.flash_attention_cuda_call(
+        q, k, v, causal=causal))
+    p_ms = time_ms(torch, lambda: flash_attention_plain_call(
+        q, k, v, causal=causal))
+    l_ms = time_ms(torch, lambda: torch.nn.functional.
+                   scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                enable_gqa=True))
+    flop, nbytes, bound, bound_by, _ = flash_cost(*case)
+    print(f"time {path} flash {case[:-1]} "
+          f"{'causal' if causal else 'non-causal'} fp32: kernel {k_ms:.4f} "
+          f"ms, plain {p_ms:.4f} ms, scaled_dot_product_attention "
+          f"{l_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
+          f"max|kernel-plain| {k_err:.3e} (max|plain| {scale:.3e}); "
+          f"x {n} calls a unit")
+    return {"name": "flash_attention", "path": path, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:111",
+            "launches": launches, "max_abs_err": max(err, k_err),
+            "ms": n * k_ms, "plain_ms": n * p_ms, "bound_ms": n * bound,
+            "bound_by": bound_by, "library_ms": n * l_ms}
+
+
+def pipeline_phase(torch, seed, compare, dev) -> dict:
+    """Phase 16, path ``llama3.2-1b-pipeline``: ``plan_stages`` on
+    Llama-3.2-1B's layers (4 stages of 4, replicas (2, 2, 2, 1)), then
+    ``pipeline_forward`` of 8 embedded microbatches of 1 x 1024 tokens
+    through the 4 stages, each ``DecoderLayer``s run by
+    ``_sublayer_apply`` on the flash kernel: without a plan on a 4-position
+    stage mesh, and with the STAP plan on its (4, 2) mesh, every position
+    on ``dev``. Each run against ``decoder_stack`` microbatch by
+    microbatch (bit for bit, else within 1e-5 x max), 128 flash launches
+    each (counts set to 0 just before a run, read just after), the last
+    microbatch's logits against ``decoder_prefill`` (1e-3 x max); then
+    times, ticks, hops, peak memory, idle shares and the FLOP bound.
+    Returns the path's flash record."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.stap import staggered_schedule
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.runtime import stap_pipeline as sp
+    from repro_torch.runtime.pipeline import pipeline_forward, plan_stages
+
+    cfg = get_config("llama3.2-1b")
+    width = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.d_head, cfg.d_ff, cfg.vocab)
+    if width != PIPE_WIDTH:
+        raise AssertionError(f"llama3.2-1b config {width}")
+    n_layers, seq, m = cfg.n_layers, PIPE_SEQ, PIPE_MICROBATCHES
+    # a layer on one microbatch: 2 FLOP a parameter a token, plus the
+    # causal QK^T and PV (half of 2 x 2 x S^2 x heads x d_head)
+    layer_flop = 2 * PIPE_LAYER_PARAMS * seq \
+        + 4 * seq * seq * cfg.n_heads * cfg.d_head / 2
+    plan = plan_stages([PIPE_LAYER_PARAMS * 4] * n_layers,
+                       [PIPE_LAYER_ACT] * n_layers,
+                       [layer_flop] * n_layers,
+                       boundary_act_bytes=PIPE_BOUNDARY,
+                       stage_capacity_bytes=PIPE_CAPACITY,
+                       chip_flops_per_s=FP32_TFLOPS,
+                       extra_chips=PIPE_EXTRA_CHIPS)
+    if plan.stage_spans != PIPE_SPANS or \
+            plan.stap.replicas != PIPE_REPLICAS:
+        raise AssertionError(f"stage plan {plan.stage_spans} replicas "
+                             f"{plan.stap.replicas}")
+    run_flop = layer_flop * n_layers * m
+    bound_ms = run_flop / FP32_TFLOPS * 1e3
+    print(f"{PIPE_PATH} plan: stages {plan.stage_spans} under "
+          f"{PIPE_CAPACITY:.1e} B a stage ({4 * PIPE_LAYER_PARAMS * 4 / 1e6:.1f}"
+          f" MB of weights; 5 layers would be "
+          f"{5 * PIPE_LAYER_PARAMS * 4 / 1e6:.1f}), replicas "
+          f"{plan.stap.replicas} on {plan.stap.chips} positions, planned "
+          f"throughput {plan.stap.throughput:.3f} microbatches/s at 67 "
+          f"TFLOP/s, transfers {plan.partition.transfers:.0f} B")
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    api = build_model(cfg, dtype=torch.float32, device=dev)
+    params = api.init(torch.Generator(dev).manual_seed(seed + 16))
+    n_layer = sum(p.numel() for p in params.layers[0].parameters())
+    if n_layer != PIPE_LAYER_PARAMS:
+        raise AssertionError(f"{n_layer} parameters a layer")
+    tokens = make_batch(cfg, m, seq, device=dev,
+                        generator=torch.Generator().manual_seed(
+                            seed + 160))["tokens"]
+    positions = torch.arange(seq, device=dev)[None]
+    with torch.no_grad():
+        xs = transformer.embed_tokens(params, tokens, cfg)[:, None]
+
+    def stage_fn(layers_, x):
+        for layer in layers_:
+            x, _, _ = transformer._sublayer_apply(
+                layer, x, cfg, positions, None, None, "flash", "kernel")
+        return x
+
+    stages = [params.layers[a:b] for a, b in plan.stage_spans]
+    gpipe_mesh = sp.DeviceMesh(sp._grid([dev] * len(stages),
+                                        (len(stages),)), (sp.STAGE_AXIS,))
+    stap_mesh = sp.stap_mesh(len(stages), max(plan.stap.replicas),
+                             devices=[dev] * (len(stages)
+                                              * max(plan.stap.replicas)))
+    runs = {
+        "gpipe": lambda: pipeline_forward(stage_fn, stages, xs, gpipe_mesh),
+        "stap": lambda: pipeline_forward(stage_fn, stages, xs, stap_mesh,
+                                         plan=plan.stap)}
+
+    def sequential():
+        return torch.stack([transformer.decoder_stack(
+            params, xs[i], cfg, positions, attn_impl="flash")[0]
+            for i in range(m)])
+
+    hop = sp._hop
+    hops = {}
+
+    def counting_hop(ys, perms, devs, shape, dtype):
+        """``_hop``, counting its calls, the bytes it copies between
+        positions and the bytes of the zeroed receive buffers it makes."""
+        sent = sum(1 for w, perm in enumerate(perms) for src, _dst in perm
+                   if ys[src][w] is not None)
+        size = torch.empty((), dtype=dtype).element_size()
+        got = hops.setdefault("n", [0, 0, 0])
+        got[0] += 1
+        got[1] += sent * math.prod(shape[1:]) * size
+        got[2] += len(devs) * math.prod(shape) * size
+        return hop(ys, perms, devs, shape, dtype)
+
+    launches = 0
+    with torch.no_grad():
+        want = sequential()
+        torch.cuda.synchronize()
+        for name, run in runs.items():
+            hops.clear()
+            sp._hop = counting_hop
+            try:
+                fkernel.launches = 0
+                out = run()
+                torch.cuda.synchronize()
+                n_run = fkernel.launches
+            finally:
+                sp._hop = hop
+            if n_run != n_layers * m:
+                raise AssertionError(f"{PIPE_PATH} {name}: {n_run} "
+                                     f"launches")
+            launches += n_run
+            if tuple(out.shape) != tuple(xs.shape):
+                raise AssertionError(f"{name} output {tuple(out.shape)}")
+            n_hops, sent_b, zero_b = hops.get("n", [0, 0, 0])
+            if torch.equal(out, want):
+                held = "bit-equal to decoder_stack microbatch by microbatch"
+            else:
+                e, scale = compare(f"{PIPE_PATH} {name} vs decoder_stack",
+                                   out, want, rel=1e-5)
+                held = (f"NOT bit-equal to decoder_stack: max|diff| "
+                        f"{e:.3e} within 1e-5 x max {scale:.3e}")
+            sched_ticks = (len(stages) + m - 1 if name == "gpipe" else
+                           staggered_schedule(plan.stap, m).n_ticks)
+            print(f"{PIPE_PATH} {name}: {n_run} flash launches, output "
+                  f"{tuple(out.shape)}, {held}; {sched_ticks} ticks, "
+                  f"{n_hops} hops sending {sent_b / 1e6:.3f} MB and "
+                  f"zero-filling {zero_b / 1e6:.3f} MB of receive buffers")
+        logits = transformer.unembed(params, out[-1][:, -1:], cfg)
+        want_logits, _ = api.prefill(params, {"tokens": tokens[-1:]}, seq)
+        e, scale = compare(f"{PIPE_PATH} last microbatch logits vs prefill",
+                           logits, want_logits, rel=1e-3)
+        print(f"{PIPE_PATH} last microbatch logits vs decoder_prefill: "
+              f"max|diff| {e:.3e} (max|prefill| {scale:.3e}, band 1e-3 x "
+              f"max)")
+        # one stage's flash call, captured on its real inputs
+        cuda_call = fops.flash_attention_cuda_call
+        seen = []
+
+        def capture(q, k, v, *, causal=True, **kw):
+            seen.append((q, k, v, causal))
+            return cuda_call(q, k, v, causal=causal, **kw)
+
+        fops.flash_attention_cuda_call = capture
+        try:
+            stage_fn(stages[0][:1], xs[0])
+        finally:
+            fops.flash_attention_cuda_call = cuda_call
+        q, k, v, causal = seen[0]
+        case = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                q.shape[3], causal)
+        rec = flash_record(torch, compare, PIPE_PATH, case,
+                           n_layers * m, launches, 0.0, qkv=(q, k, v))
+        # in turns: sequential, gpipe, stap, then the reverse, three times
+        torch.cuda.reset_peak_memory_stats()
+        timed = {"sequential": sequential, **runs}
+        samples = {name: [] for name in timed}
+        for fn in timed.values():
+            fn()
+        for rep in range(6):
+            for name in (list(timed) if rep % 2 == 0 else
+                         list(reversed(timed))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                timed[name]()
+                torch.cuda.synchronize()
+                samples[name].append((time.perf_counter() - t0) * 1e3)
+        times = {name: statistics.median(v) for name, v in samples.items()}
+        seq_ms = times["sequential"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        x_hop = xs[0]
+        hop_ms = time_ms(torch, lambda: hop(
+            [[x_hop]] * len(stages),
+            [[(i, i + 1) for i in range(len(stages) - 1)]],
+            gpipe_mesh.flat, (1,) + tuple(x_hop.shape), x_hop.dtype))
+        print(f"time {PIPE_PATH}: 8 microbatches one after another "
+              f"(decoder_stack) {seq_ms:.3f} ms; gpipe {times['gpipe']:.3f}"
+              f" ms ({times['gpipe'] / seq_ms:.4f}x); stap "
+              f"{times['stap']:.3f} ms ({times['stap'] / seq_ms:.4f}x) "
+              f"(host clock after synchronize, median of 6 taken in "
+              f"turns); FLOP "
+              f"{run_flop / 1e12:.4f} T, bound {bound_ms:.3f} ms at 67 "
+              f"TFLOP/s (sequential at {bound_ms / seq_ms * 100:.2f}%); "
+              f"one gpipe tick's hop (3 copies of "
+              f"{PIPE_BOUNDARY / 1e6:.3f} MB, 4 zeroed buffers) "
+              f"{hop_ms * 1e3:.3f} us (CUDA events, median of 5); peak "
+              f"memory {peak:.3f} GB, of which {before_gb:.3f} GB was "
+              f"allocated before this phase built its model")
+        for name, run in timed.items():
+            trace_breakdown(torch, f"{PIPE_PATH} {name}", run, top=5)
+    return rec
+
+
+def ep_phase(torch, seed, compare, dev, api, params, prompts) -> dict:
+    """Phase 17, path ``olmoe-1b-7b-ep``: phase 12's OLMoE-1B-7B serves
+    request 1's prefill inside ``use_shardings(ShardCtx(mesh))`` with
+    ``mesh`` a (1, 4) ("data", "model") ``DeviceMesh`` on ``dev``: each
+    model position runs 16 of the 64 experts, as views of the weights.
+    Held against the same prefill without a context ("local", 1e-3 x
+    max), the routing decisions that differ counted, 16 flash launches;
+    times. Then ``allreduce_compressed`` over the 4 positions of a
+    ("data",) mesh on ``dev`` on four gradient lists of the Llama smoke
+    config (four data shards of one batch): against the CPU port (int8
+    payloads and their int32 sums equal, floats within 1e-6 of the
+    magnitudes they come from) and the plain fp32 mean (within the
+    estimator's element-wise bound; the tensors within one EF step,
+    max|g| / 127, counted). Returns the path's flash record."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.models.sharding import ShardCtx, use_shardings
+    from repro_torch.optim import compression
+    from repro_torch.runtime import stap_pipeline as sp
+
+    cfg = api.cfg
+    (b, s, g), prompt = LM_REQUESTS[0], prompts[0]
+    mesh = sp.DeviceMesh(sp._grid([dev] * math.prod(EP_MESH), EP_MESH),
+                         ("data", "model"))
+    tp = EP_MESH[1]
+    e_local = cfg.moe.n_experts // tp
+    route, local_moe = moe._route, moe._local_moe
+    routed, views = [], []
+
+    def recording_route(x, router, e, k):
+        out = route(x, router, e, k)
+        routed.append(out[1].sort(dim=-1).values)
+        return out
+
+    def recording_local_moe(x2d, router, w1, w3, w2, **kw):
+        e0 = kw.get("e_start", 0)
+        views.append(all(
+            w._base is not None and w.shape[0] == e_local
+            and w.data_ptr() - w.untyped_storage().data_ptr()
+            == e0 * w.stride(0) * w.element_size() for w in (w1, w3, w2)))
+        return local_moe(x2d, router, w1, w3, w2, **kw)
+
+    moe._route, moe._local_moe = recording_route, recording_local_moe
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with use_shardings(ShardCtx(mesh=mesh)):
+            fkernel.launches = 0
+            logits, _ = api.prefill(params, prompt, s + g)
+            torch.cuda.synchronize()
+            launches = fkernel.launches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_ep = len(routed)
+        views_ok = len(views) == cfg.n_layers * tp and all(views)
+        want, _ = api.prefill(params, prompt, s + g)
+    finally:
+        moe._route, moe._local_moe = route, local_moe
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{EP_PATH}: {launches} launches")
+    if n_ep != cfg.n_layers * tp or len(routed) != n_ep + cfg.n_layers:
+        raise AssertionError(f"{EP_PATH}: {n_ep} routings under EP")
+    if not views_ok:
+        raise AssertionError(f"{EP_PATH}: a position's experts were not "
+                             f"views at its offset")
+    ep_routes, local_routes = routed[:n_ep], routed[n_ep:]
+    for layer in range(cfg.n_layers):
+        first = ep_routes[layer * tp]
+        if not all(torch.equal(first, r)
+                   for r in ep_routes[layer * tp:(layer + 1) * tp]):
+            raise AssertionError(f"layer {layer}: the model positions "
+                                 f"routed differently")
+    flips = sum(int((ep_routes[l * tp] != local_routes[l]).any(dim=-1).sum())
+                for l in range(cfg.n_layers))
+    decisions = sum(int(r.shape[0]) for r in local_routes)
+    err, scale = compare(f"{EP_PATH} prefill logits vs local", logits, want,
+                         rel=1e-3)
+    weights_gb = sum(p.numel() for p in params.parameters()) * 4 / 1e9
+    print(f"{EP_PATH} request 1 (batch {b}, prompt {s}) on a "
+          f"{EP_MESH} (data, model) mesh, {e_local} experts a position as "
+          f"views: {launches} flash launches, logits max|ep-local| "
+          f"{err:.3e} (max|local| {scale:.3e}, band 1e-3 x max); routing "
+          f"decisions (token, MoE layer) that differ: {flips} of "
+          f"{decisions}; the {tp} positions route alike in every layer; "
+          f"peak device memory during the EP prefill {peak:.3f} GB "
+          f"(OLMoE's weights {weights_gb:.3f} GB)")
+    ep_ms = time_ms(torch, lambda: _ep_prefill(api, params, prompt, s + g,
+                                               mesh))
+    local_ms = time_ms(torch, lambda: api.prefill(params, prompt, s + g))
+    n_adds = cfg.n_layers * (tp - 1)
+    # the partials are (T, D); no other add of the prefill has 2-d inputs
+    # of that shape (the residual adds are (B, S, D))
+    part = [b * s, cfg.d_model]
+    got_adds, add_ms = op_device_ms(
+        torch, lambda: _ep_prefill(api, params, prompt, s + g, mesh),
+        "aten::add", [part, part])
+    if got_adds != n_adds:
+        raise AssertionError(f"{EP_PATH}: {got_adds} partial-sum adds in "
+                             f"the trace, {n_adds} expected")
+    print(f"time {EP_PATH} prefill: ep {ep_ms:.3f} ms, local "
+          f"{local_ms:.3f} ms ({ep_ms / local_ms:.4f}x; CUDA events, median "
+          f"of 5); the partial sums: {got_adds} adds of {b * s} x "
+          f"{cfg.d_model} fp32 in a traced EP prefill, {add_ms:.4f} ms of "
+          f"device time together ({add_ms / got_adds:.4f} ms each)")
+    trace_breakdown(torch, f"{EP_PATH} prefill",
+                    lambda: _ep_prefill(api, params, prompt, s + g, mesh),
+                    top=5)
+    rec = flash_record(torch, compare, EP_PATH,
+                       (b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.d_head,
+                        True), cfg.n_layers, launches, 0.0, seed=seed + 17,
+                       dev=dev)
+
+    # the compressed all-reduce over four data positions
+    smoke = get_smoke("llama3.2-1b")
+    sapi = build_model(smoke, dtype=torch.float32, device=dev)
+    sparams = sapi.init(torch.Generator(dev).manual_seed(seed + 170))
+    batch = make_batch(smoke, 16, 64, device=dev,
+                       generator=torch.Generator().manual_seed(seed + 171))
+    leaves = list(sparams.parameters())
+    grads = []
+    for shard in range(4):
+        part_b = {k: v[4 * shard:4 * (shard + 1)] for k, v in batch.items()}
+        loss, _ = sapi.train_loss(sparams, part_b)
+        grads.append([gr.detach() for gr in
+                      torch.autograd.grad(loss, leaves)])
+    data_mesh = sp.DeviceMesh(sp._grid([dev] * 4, (4,)), ("data",))
+    cpu = torch.device("cpu")
+    cpu_mesh = sp.DeviceMesh(sp._grid([cpu] * 4, (4,)), ("data",))
+    cpu_grads = [[gr.to(cpu) for gr in gl] for gl in grads]
+    means, states = compression.allreduce_compressed(
+        grads, [compression.init_ef(gl) for gl in grads], data_mesh, "data")
+    c_means, c_states = compression.allreduce_compressed(
+        cpu_grads, [compression.init_ef(gl) for gl in cpu_grads], cpu_mesh,
+        "data")
+    worst_f, worst_bound, worst_step, in_step = 0.0, 0.0, 0.0, 0
+    for leaf in range(len(leaves)):
+        packed = [compression.compress(gl[leaf], torch.zeros_like(gl[leaf]))
+                  for gl in grads]
+        qs = [q for q, _, _ in packed]
+        c_qs = [compression.compress(gl[leaf], torch.zeros_like(gl[leaf]))[0]
+                for gl in cpu_grads]
+        for q, c_q in zip(qs, c_qs):
+            if not torch.equal(q.cpu(), c_q):
+                raise AssertionError(f"leaf {leaf}: int8 payloads differ")
+        total = sum(q.to(torch.int32) for q in qs)
+        if not torch.equal(total.cpu(), sum(q.to(torch.int32)
+                                            for q in c_qs)):
+            raise AssertionError(f"leaf {leaf}: int32 sums differ")
+        # floats within 1e-6 of the magnitudes they are computed from:
+        # the mean's own max, and the gradient's for the residual
+        # x - q * s, which cancels to within s / 2 of 0
+        for p in range(4):
+            for got, ref, mag in (
+                    (means[p][leaf], c_means[p][leaf],
+                     float(c_means[p][leaf].abs().max())),
+                    (states[p].residual[leaf], c_states[p].residual[leaf],
+                     float(cpu_grads[p][leaf].abs().max()))):
+                e = float((got.cpu() - ref).abs().max())
+                if e > 1e-6 * mag:
+                    raise AssertionError(
+                        f"allreduce leaf {leaf} position {p}: max|gpu-cpu| "
+                        f"{e:.3e} > 1e-6 x {mag:.3e}")
+                worst_f = max(worst_f, e / max(mag, 1e-30))
+        # g_p = q_p s_p + r_p with |r_p| <= s_p / 2, and the EF mean is
+        # sum q_p * mean(s) / n: it differs from the fp32 mean by
+        # sum (q_p (mean(s) - s_p) - r_p) / n, so element by element by at
+        # most sum (|q_p| |mean(s) - s_p| + s_p / 2) / n; within one EF
+        # step, max|g| / 127, only where the positions' scales agree
+        plain = sum(gl[leaf] for gl in grads) / 4
+        s_bar = sum(sc for _, sc, _ in packed) / 4
+        bound = sum(q.float().abs() * (s_bar - sc).abs() + sc / 2
+                    for q, sc, _ in packed) / 4
+        diff = (means[0][leaf] - plain).abs()
+        slack = 1e-6 * float(plain.abs().max()) + 1e-12
+        if bool((diff > bound * (1 + 1e-5) + slack).any()):
+            raise AssertionError(f"leaf {leaf}: the EF mean outside its "
+                                 f"rounding and scale bound")
+        worst_bound = max(worst_bound, float((diff / (bound + slack)).max()))
+        step = max(float(gl[leaf].abs().max()) for gl in grads) / 127
+        e = float(diff.max())
+        worst_step = max(worst_step, e / step)
+        in_step += e <= step
+    print(f"{EP_PATH} allreduce_compressed over {len(leaves)} tensors of "
+          f"the llama3.2-1b smoke config's gradients on 4 data positions: "
+          f"int8 payloads and int32 sums equal to the CPU port's, means "
+          f"and residuals within {worst_f:.3e} x the magnitude they are "
+          f"computed from (the mean's max, the gradient's); the EF "
+          f"mean against the fp32 mean: within its element-wise bound "
+          f"(at most {worst_bound:.4f} of it); {in_step} of {len(leaves)} "
+          f"tensors within one EF step (max|g| / 127), the worst at "
+          f"{worst_step:.4f} steps")
+    return rec
+
+
+def _ep_prefill(api, params, prompt, s_max, mesh):
+    from repro_torch.models.sharding import ShardCtx, use_shardings
+
+    with use_shardings(ShardCtx(mesh=mesh)):
+        return api.prefill(params, prompt, s_max)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3045,14 +3576,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flash_err = flash_new_shapes(torch, args.seed, compare)
-    olmoe_rec = routed_serving(
+    olmoe_rec, olmoe = routed_serving(
         torch, args.seed, compare, OLMOE_PATH, "olmoe-1b-7b",
         (16, 0, 2048, 16, 16, 128, 0, 50304, (64, 8, 1024)), OLMOE_PARAMS,
         OLMOE_CALLS, flash_err[OLMOE_PATH])
+    ep_rec = ep_phase(torch, args.seed, compare, dev, *olmoe)
+    del olmoe
     gc.collect()  # OLMoE's tensors go before SeamlessM4T's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    seamless_rec = routed_serving(
+    seamless_rec, _ = routed_serving(
         torch, args.seed, compare, SEAMLESS_PATH, "seamless-m4t-large-v2",
         (24, 24, 1024, 16, 16, 64, 8192, 256206, None), SEAMLESS_PARAMS,
         SEAMLESS_CALLS, flash_err[SEAMLESS_PATH])
@@ -3062,6 +3595,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_rec = training_phase(torch, args.seed, compare)
+    gc.collect()  # training's tensors go before the pipeline's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe_rec = pipeline_phase(torch, args.seed, compare, dev)
 
     # fused-span times: one batch-8 run of ResNet-18's five spans, one
     # batch-4 run of AlexNet's span, one batch-8 run of each policy plan's
@@ -3072,7 +3609,8 @@ def main() -> int:
     # each timed over the run's 16 microbatches of 2 (its 80 launches);
     # the async engine's: one round's spans at batch 8, and the ring
     # engine's: one slot's spans at microbatch 2, each span one call;
-    # launches: each path's counted run
+    # launches: each path's counted run. Flash on the pipeline path: one
+    # run's 128 calls timed, launches of both runs (128 each)
     print(json.dumps({"kernels": [{
         "name": "fused_span",
         "path": name,
@@ -3087,7 +3625,8 @@ def main() -> int:
         "bound_by": "operations" if rec["t_ops"] >= rec["t_mem"] else "bytes",
         "library_ms": rec["library_ms"],
     } for name, rec in paths.items()] + [flash_rec, ssd_rec, olmoe_rec,
-                                         seamless_rec, train_rec]}))
+                                         ep_rec, seamless_rec, train_rec,
+                                         pipe_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,9 +8,9 @@ rounds half to even, as ``jnp.round`` does, so ``q`` is the reference's
 bit for bit.
 
 A pytree here is a sequence of tensors (a module's parameters or their
-gradients, in order). The reference's ``allreduce_compressed`` is a
-``psum`` inside ``shard_map`` over a mesh axis; it comes with the mesh
-modules (ROADMAP Queue A 3.5) and raises until then.
+gradients, in order). ``allreduce_compressed`` runs on one controller
+over the positions of a ``DeviceMesh`` axis (the reference's is called
+once per participant inside ``shard_map``).
 """
 from __future__ import annotations
 
@@ -60,11 +60,41 @@ def decompress_tree(q_tree: Sequence[torch.Tensor],
     return [decompress(q, s) for q, s in zip(q_tree, scale_tree)]
 
 
-def allreduce_compressed(grads, state: EFState, axis_name: str,
-                         n_participants: int):
-    """The reference's int8 all-reduce over a mesh axis inside
-    ``shard_map``; not ported yet."""
-    raise NotImplementedError(
-        "allreduce_compressed reduces over a mesh axis inside shard_map; "
-        "the mesh modules are not ported yet (ROADMAP Queue A 3.5). "
-        "compress_tree and decompress_tree run on one device")
+def allreduce_compressed(grads: Sequence[Sequence[torch.Tensor]],
+                         states: Sequence[EFState], mesh,
+                         axis_name: str):
+    """Error-feedback int8 all-reduce over the positions of ``mesh``'s
+    axis ``axis_name`` (a ``runtime.stap_pipeline.DeviceMesh``).
+
+    The reference's ``allreduce_compressed(grads, state, axis_name,
+    n_participants)`` runs once per participant inside ``shard_map``;
+    here one controller takes every participant's gradient list and
+    ``EFState``, ``grads[p]`` and ``states[p]`` for position p along the
+    axis (on its device), and ``n_participants`` is the axis's length.
+    Each position compresses its own tensors; the int8 payloads are
+    summed in int32 (no overflow below 2^24 participants) and the scales
+    summed, on the first position's device, then rescaled by the mean of
+    scales — the standard EF-mean estimator, ``sum * mean_scale / n``.
+    Returns (means, new_states), one of each per position, each mean
+    copied to its position's device.
+    """
+    devs = mesh.along(axis_name)
+    n = len(devs)
+    if len(grads) != n or len(states) != n:
+        raise ValueError(f"{len(grads)} gradient lists and {len(states)} "
+                         f"states for the {n} positions of axis "
+                         f"{axis_name!r}")
+    packed = [compress_tree(g, st) for g, st in zip(grads, states)]
+    means = []
+    for leaf in range(len(grads[0])):
+        qs = [q[leaf].to(devs[0]) for (q, _), _ in packed]
+        summed = qs[0].to(torch.int32)
+        for q in qs[1:]:
+            summed = summed + q.to(torch.int32)
+        scale_sum = packed[0][0][1][leaf].to(devs[0])
+        for (_, s), _ in packed[1:]:
+            scale_sum = scale_sum + s[leaf].to(devs[0])
+        scale_mean = scale_sum / n
+        means.append(summed.float() * scale_mean / n)
+    return ([[m.to(dev) for m in means] for dev in devs],
+            [new_state for _, new_state in packed])

@@ -47,6 +47,10 @@ Two executable forms share the span stages:
   an unbounded stream of mixed submit sizes
   (``repro_torch.occam.Deployment.serve`` builds sessions on it).
 
+:func:`replicated_forward` runs the same round executor over same-shape
+stages of any ``stage_fn`` (an LM's layer spans): the ``plan=`` path of
+``repro_torch.runtime.pipeline.pipeline_forward``.
+
 The static planning half (:class:`PayloadSpec`, :func:`payload_spec`,
 :class:`StageSpec`, :func:`plan_span_stages`, :func:`model_stage_times`)
 is the reference's text; ``occam.autoplan`` scores candidates with it and
@@ -54,6 +58,7 @@ is the reference's text; ``occam.autoplan`` scores candidates with it and
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Sequence
 
@@ -223,6 +228,11 @@ class DeviceMesh:
         """The positions in row-major order (the flat position index)."""
         return list(self.devices.flat)
 
+    def along(self, axis: str) -> list[torch.device]:
+        """The positions along ``axis``, every other axis at index 0."""
+        grid = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
+        return list(grid.reshape(grid.shape[0], -1)[:, 0])
+
     def __repr__(self) -> str:
         return f"DeviceMesh({self.shape}, {sorted(set(map(str, self.flat)))})"
 
@@ -376,6 +386,20 @@ def _hop(ys: Sequence[Sequence], perms: Sequence, devs: Sequence,
     return out
 
 
+def _check_mesh(mesh: DeviceMesh, sched: StaggeredSchedule,
+                stage_axis: str, replica_axis: str) -> None:
+    """Slot routing is computed over a (n_stages, max_replicas) grid; a
+    mismatched mesh would silently misroute every payload to zeros."""
+    s_stages, r_max = sched.n_stages, sched.max_replicas
+    got = (mesh.shape.get(stage_axis), mesh.shape.get(replica_axis))
+    if got != (s_stages, r_max):
+        raise ValueError(
+            f"mesh is {stage_axis}={got[0]}, {replica_axis}={got[1]} but "
+            f"the schedule needs {s_stages}x{r_max} (replicas "
+            f"{sched.replicas}); build it with stap_mesh({s_stages}, "
+            f"{r_max})")
+
+
 def _round_executor(step, position_params: Sequence, feed: torch.Tensor,
                     mesh: DeviceMesh, sched: StaggeredSchedule,
                     stage_axis: str = STAGE_AXIS,
@@ -410,16 +434,8 @@ def _round_executor(step, position_params: Sequence, feed: torch.Tensor,
     the row ``output_bank_row`` assigns to the round banks it when it
     arrives, within the schedule's existing ticks.
     """
+    _check_mesh(mesh, sched, stage_axis, replica_axis)
     s_stages, r_max = sched.n_stages, sched.max_replicas
-    got = (mesh.shape.get(stage_axis), mesh.shape.get(replica_axis))
-    if got != (s_stages, r_max):
-        # slot routing is computed over a (n_stages, max_replicas) grid; a
-        # mismatched mesh would silently misroute every payload to zeros
-        raise ValueError(
-            f"mesh is {stage_axis}={got[0]}, {replica_axis}={got[1]} but "
-            f"the schedule needs {s_stages}x{r_max} (replicas "
-            f"{sched.replicas}); build it with stap_mesh({s_stages}, "
-            f"{r_max})")
     width, rounds = sched.round_width, sched.n_rounds
     chunk = feed_chunk_rounds(rounds, s_stages)
     if feed.shape[0] == rounds:
@@ -491,6 +507,103 @@ def _round_executor(step, position_params: Sequence, feed: torch.Tensor,
                 else:
                     queue[p][head].zero_()
     return torch.cat([q.to(devs[0]) for q in outq])
+
+
+# --------------------------------------------------------------------------
+# The homogeneous replicated pipeline (``pipeline_forward``'s plan= path)
+# --------------------------------------------------------------------------
+
+def stage_slices(stage_params, n_stages: int) -> list:
+    """Per-stage parameters: the reference's form (a tensor, or a dict of
+    tensors, with a leading stage dimension on every leaf) sliced into
+    views, or a length-``n_stages`` sequence of per-stage objects (a
+    module, a ``ModuleList`` slice of a decoder's layers) taken as is."""
+    def check(n):
+        if n != n_stages:
+            raise ValueError(f"stage_params hold {n} stages; the mesh "
+                             f"has {n_stages}")
+
+    if isinstance(stage_params, torch.Tensor):
+        check(stage_params.shape[0])
+        return list(stage_params.unbind(0))
+    if isinstance(stage_params, dict):
+        for leaf in stage_params.values():
+            check(leaf.shape[0])
+        return [{k: v[i] for k, v in stage_params.items()}
+                for i in range(n_stages)]
+    check(len(stage_params))
+    return list(stage_params)
+
+
+def _on_device(stage, dev: torch.device):
+    """One stage's parameters on ``dev``: tensors already there are
+    returned as they are (no copy); a module whose tensors all sit on
+    ``dev`` (``cuda`` meaning the current CUDA device) is shared, else
+    copied whole."""
+    if isinstance(stage, torch.Tensor):
+        return stage.to(dev)
+    if isinstance(stage, dict):
+        return {k: _on_device(v, dev) for k, v in stage.items()}
+    if isinstance(stage, torch.nn.Module):
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if all(t.device == dev for t in stage.state_dict().values()):
+            return stage
+        return copy.deepcopy(stage).to(dev)
+    raise TypeError(f"stage parameters of type {type(stage).__name__}: "
+                    f"a tensor, a dict of tensors or a module")
+
+
+def position_stage_params(stages: Sequence, devs: Sequence[torch.device],
+                          rows: Sequence[int]) -> list:
+    """Each position's stage parameters (``rows[p]`` is position p's
+    stage) on its device; positions of one stage on one device share one
+    object, so replicas there share the stage's tensors."""
+    placed: dict[tuple, object] = {}
+    out = []
+    for i, dev in zip(rows, devs):
+        if (i, dev) not in placed:
+            placed[(i, dev)] = _on_device(stages[i], dev)
+        out.append(placed[(i, dev)])
+    return out
+
+
+def replicated_forward(stage_fn, stage_params, microbatches: torch.Tensor,
+                       mesh: DeviceMesh, plan: StapPlan,
+                       stage_axis: str = STAGE_AXIS,
+                       replica_axis: str = REPLICA_AXIS) -> torch.Tensor:
+    """Homogeneous replicated pipeline (the ``pipeline_forward``
+    generalization): same-shape stages, microbatch m -> replica m % r_i.
+
+    stage_fn(params_slice, x) -> y with y.shape == x.shape; stage_params
+    in either form ``stage_slices`` takes; microbatches is (M, mb, ...).
+    Returns the (M, mb, ...) last-stage outputs on the first position's
+    device. Only live slots run (``_round_executor``): stage_fn is called
+    S x M times.
+    """
+    m = microbatches.shape[0]
+    sched = staggered_schedule(plan, m)
+    _check_mesh(mesh, sched, stage_axis, replica_axis)
+    pad = sched.n_slots - m
+    feed = microbatches
+    if pad:
+        feed = torch.cat([feed, feed.new_zeros((pad,) + feed.shape[1:])])
+    feed = feed.reshape((sched.n_rounds, sched.round_width)
+                        + tuple(microbatches.shape[1:]))
+    r_max = sched.max_replicas
+    devs = mesh.flat
+    params = position_stage_params(
+        stage_slices(stage_params, sched.n_stages), devs,
+        [p // r_max for p in range(len(devs))])
+
+    def step(_i, params_here, slot):
+        return stage_fn(params_here, slot)
+
+    staged = _round_executor(step, params, feed, mesh, sched,
+                             stage_axis=stage_axis,
+                             replica_axis=replica_axis)
+    outs = collect_staged_outputs(staged, sched)
+    return outs.reshape((sched.n_slots,) + tuple(microbatches.shape[1:]))[:m]
 
 
 # --------------------------------------------------------------------------

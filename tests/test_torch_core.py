@@ -109,8 +109,9 @@ def test_timer_classes_match_reference_source(name):
     assert port[name] == ref[name]
 
 
-# The planning frontier, the STAP stage plan and the async engine: every
-# definition the port keeps as the reference's text. search.py differs
+# The planning frontier, the STAP stage plan, the LM stage plan, the
+# sharding context's resolution and the async engine: every definition
+# the port keeps as the reference's text. search.py differs
 # only in Candidate.placement / Candidate.deploy / Frontier.serve (an
 # explicit device); serve/engine.py only where it packs and joins tensors.
 ENGINE_OWN = {"AsyncEngine", "AsyncEngine.submit", "AsyncEngine._stage",
@@ -129,6 +130,11 @@ TWINS = [("occam/search.py", name) for name in (
     ("runtime/stap_pipeline.py", name) for name in (
         "PayloadSpec", "payload_spec", "StageSpec", "plan_span_stages",
         "model_stage_times")] + [
+    ("runtime/pipeline.py", "StagePlan"), ("runtime/pipeline.py",
+                                           "plan_stages"),
+    ("launch/mesh.py", "data_axes")] + [
+    ("models/sharding.py", name) for name in (
+        "_CTX", "use_shardings", "current_ctx", "resolve")] + [
     ("occam/serve/engine.py", name) for name in sorted(
         set(_sources(SRC / "repro" / "occam/serve/engine.py"))
         - ENGINE_OWN)]

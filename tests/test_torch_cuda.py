@@ -5,7 +5,9 @@ pinned cluster of 8, serving sessions' CUDA graphs against eager runs,
 STAP pipelines on one GPU against the single-device run, the MoE layer on
 the GPU against the CPU, the LMs' (Llama, Mamba2, OLMoE and the
 SeamlessM4T encoder-decoder) prefill and decode on the GPU against the
-CPU, and a smoke train step on the GPU against the CPU.
+CPU, a smoke train step on the GPU against the CPU, and what runs across
+mesh positions on one GPU (the LM pipeline against ``decoder_stack``,
+expert-parallel MoE and the compressed all-reduce against the CPU).
 
 This file imports neither JAX nor ``repro``, so it runs on a GPU machine
 that has only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda
@@ -867,3 +869,127 @@ def test_train_smoke_on_gpu_restarts_exactly(cuda, tmp_path):
     _, resumed = train("llama3.2-1b", steps=6, ckpt_dir=str(tmp_path / "b"),
                        **kw)
     np.testing.assert_allclose(resumed, full[3:], rtol=1e-5)
+
+
+def _one_gpu_mesh(cuda, shape, axes):
+    from repro_torch.runtime.stap_pipeline import DeviceMesh, _grid
+
+    return DeviceMesh(_grid([cuda] * int(np.prod(shape)), shape), axes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, (1, 2, 2, 1)],
+                         ids=["gpipe", "replicated"])
+def test_llama_pipeline_on_gpu_equals_decoder_stack(cuda, plan):
+    """The Llama smoke config at 8 layers, 4 stages of 2 on one GPU, 3
+    microbatches of 2 x 64: bit for bit ``decoder_stack`` run microbatch
+    by microbatch (the same kernels on the same shapes; the hops are
+    copies), one flash launch per layer and microbatch, and the stages
+    the decoder's own layers (a mesh of ``torch.device("cuda")`` shares
+    modules on ``cuda:0``)."""
+    import dataclasses
+
+    from repro_torch.models import transformer
+    from repro_torch.runtime.pipeline import pipeline_forward
+    from repro_torch.runtime.stap_pipeline import stap_mesh
+
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"), n_layers=8)
+    api = build_model(cfg, dtype=torch.float32, device=cuda)
+    params = api.init(torch.Generator(cuda).manual_seed(0))
+    m, mb, s = 3, 2, 64
+    xs = torch.randn((m, mb, s, cfg.d_model),
+                     generator=torch.Generator().manual_seed(1)).to(cuda)
+    positions = torch.arange(s, device=cuda)[None].expand(mb, s)
+    seen = set()
+
+    def stage_fn(layers_, x):
+        seen.update(id(layer) for layer in layers_)
+        for layer in layers_:
+            x, _, _ = transformer._sublayer_apply(
+                layer, x, cfg, positions, None, None, "flash", "kernel")
+        return x
+
+    mesh = _one_gpu_mesh(cuda, (4,), ("stage",)) if plan is None \
+        else stap_mesh(4, 2, devices=[cuda] * 8)
+    with torch.no_grad():
+        want = torch.stack([transformer.decoder_stack(
+            params, xs[i], cfg, positions)[0] for i in range(m)])
+        flash_kernel.launches = 0
+        got = pipeline_forward(stage_fn, [params.layers[2 * i:2 * i + 2]
+                                          for i in range(4)], xs, mesh,
+                               plan=plan)
+        torch.cuda.synchronize()
+    assert flash_kernel.launches == cfg.n_layers * m
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    # the positions on "cuda" ran the decoder's own layers, not copies
+    assert seen == {id(layer) for layer in params.layers}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [1.0, 4.0])
+def test_moe_ep_on_gpu_matches_cpu(cuda, capacity_factor):
+    """Expert parallelism on a (2, 4) mesh of one GPU against the same on
+    the CPU (1e-5), and at the no-drop factor against the GPU's local
+    path; each position's experts are views of the weights."""
+    import dataclasses
+
+    from repro_torch.models.sharding import ShardCtx, use_shardings
+
+    cfg = get_smoke("olmoe-1b-7b")
+    mc = dataclasses.replace(cfg.moe, capacity_factor=capacity_factor)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg.d_model, mc,
+                     torch.float32)
+    gp = {name: v.detach().to(cuda) for name, v in p.items()}
+    x = torch.randn((4, 24, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    ptrs = []
+    local_moe = moe._local_moe
+
+    def spy(x2d, router, w1, w3, w2, **kw):
+        ptrs.append(w1.untyped_storage().data_ptr()
+                    == gp["w1"].untyped_storage().data_ptr())
+        return local_moe(x2d, router, w1, w3, w2, **kw)
+
+    with torch.no_grad():
+        with use_shardings(ShardCtx(mesh=_one_gpu_mesh(
+                cuda, (2, 4), ("data", "model")))):
+            moe._local_moe = spy
+            try:
+                got, got_aux = moe.moe_sublayer(gp, x.to(cuda), mc)
+            finally:
+                moe._local_moe = local_moe
+        with use_shardings(ShardCtx(mesh=_one_gpu_mesh(
+                torch.device("cpu"), (2, 4), ("data", "model")))):
+            want, want_aux = moe.moe_sublayer(p, x, mc)
+        local, _ = moe.moe_sublayer(gp, x.to(cuda), mc, impl="local")
+    assert len(ptrs) == 8 and all(ptrs)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for name in want_aux:
+        torch.testing.assert_close(got_aux[name].cpu(), want_aux[name],
+                                   rtol=1e-5, atol=1e-5)
+    if capacity_factor == 4.0:
+        torch.testing.assert_close(got, local, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_allreduce_compressed_on_gpu_matches_cpu(cuda):
+    """Four positions of a ("data",) mesh on one GPU against four on the
+    CPU: the same int8 payloads, means and residuals within 1e-6 x max."""
+    from repro_torch.optim import compression
+
+    gen = torch.Generator().manual_seed(2)
+    trees = [[torch.randn(shape, generator=gen) * (i + 1)
+              for shape in ((33, 7), (5,), (3, 4, 8))] for i in range(4)]
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        grads = [[g.to(dev) for g in t] for t in trees]
+        results.append(compression.allreduce_compressed(
+            grads, [compression.init_ef(g) for g in grads],
+            _one_gpu_mesh(dev, (4,), ("data",)), "data"))
+    (means, states), (c_means, c_states) = results
+    for p in range(4):
+        for got, want in zip(means[p] + states[p].residual,
+                             c_means[p] + c_states[p].residual):
+            assert got.device.type == "cuda"
+            tol = 1e-6 * float(want.abs().max())
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=tol)

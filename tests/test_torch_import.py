@@ -45,7 +45,8 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.data.pipeline",
                 "repro_torch.checkpoint.checkpointer",
                 "repro_torch.runtime.elastic", "repro_torch.launch.train_step",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.runtime.pipeline",
+                "repro_torch.models.sharding", "repro_torch.launch.mesh"):
         assert mod in mods
     code = (
         "import importlib, sys\n"

@@ -140,11 +140,15 @@ def test_no_drop_matches_dense_oracle(arch, impl):
     close(y.reshape(-1, cfg.d_model), want.numpy())
 
 
-def test_ep_shard_map_raises():
+def test_ep_shard_map_without_a_context_is_local():
+    """Without a ``ShardCtx`` the expert-parallel impl runs every expert
+    locally, as the reference's; an unknown impl raises."""
     cfg, _, tp = params("olmoe-1b-7b")
     x = t(tokens((1, 4, cfg.d_model)))
-    with pytest.raises(NotImplementedError, match="Queue A 3.5"):
-        moe.moe_sublayer(tp, x, cfg.moe, impl="ep_shard_map")
+    y, aux = moe.moe_sublayer(tp, x, cfg.moe, impl="ep_shard_map")
+    want, want_aux = moe.moe_sublayer(tp, x, cfg.moe, impl="local")
+    assert torch.equal(y, want)
+    assert all(torch.equal(aux[k], want_aux[k]) for k in want_aux)
     with pytest.raises(ValueError, match="impl"):
         moe.moe_sublayer(tp, x, cfg.moe, impl="dense")
 

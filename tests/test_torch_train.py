@@ -166,11 +166,31 @@ def test_compress_tree_error_feedback_matches_reference():
         assert float((acc / 40 - g).abs().max()) <= float(s) / 2
 
 
-def test_allreduce_compressed_names_the_mesh_item():
-    with pytest.raises(NotImplementedError, match="3.5"):
-        compression.allreduce_compressed([torch.zeros(2)],
-                                         compression.init_ef([torch.zeros(2)]),
-                                         "pod", 2)
+def test_allreduce_compressed_is_the_ef_mean_over_a_mesh_axis():
+    """Over the 3 positions of a CPU ``("pod",)`` mesh: each position
+    gets sum(q) * mean(scale) / n of the reference's ``compress_tree``
+    payloads, and its own new residual."""
+    from repro_torch.runtime.stap_pipeline import DeviceMesh, _grid
+
+    rng = np.random.default_rng(7)
+    trees = [[rng.standard_normal((6, 5)).astype(np.float32) * (i + 1)]
+             for i in range(3)]
+    mesh = DeviceMesh(_grid([torch.device("cpu")] * 3, (3,)), ("pod",))
+    states = [compression.init_ef(_tensors({"g": g[0]})) for g in trees]
+    means, new_states = compression.allreduce_compressed(
+        [_tensors({"g": g[0]}) for g in trees], states, mesh, "pod")
+    packed = [j_compression.compress_tree(
+        [jnp.asarray(g[0])], j_compression.init_ef([jnp.asarray(g[0])]))[0]
+        for g in trees]
+    qs = [np.asarray(q[0], np.int32) for q, _ in packed]
+    js = [s for _, s in packed]
+    scale = np.float32(sum(np.float32(s[0]) for s in js)) / np.float32(3)
+    want = np.sum(qs, axis=0).astype(np.float32) * scale / np.float32(3)
+    assert len(means) == len(new_states) == 3
+    for m in means:
+        _close(m[0], want, 1e-6)
+    for st, g, q, s in zip(new_states, trees, qs, js):
+        _close(st.residual[0], g[0] - q * np.float32(s[0]), 1e-6)
 
 
 # ---------------------------------------------------------------- data
