@@ -288,6 +288,40 @@ Execution across mesh positions, every position on the one GPU:
    sum (|q_p| |mean(s) - s_p| + s_p / 2) / n, with the tensors within one
    EF step (max|g| / 127) counted.
 
+Dry run and the example twins (after the pipeline's tensors are freed):
+
+18. Paths ``llama3.2-1b-dryrun-{train,prefill,decode}``: the dry run's
+   cells of Llama-3.2-1B at full width in bf16 (``build_model``'s
+   default) on a (1, 1) ("data", "model") ``DeviceMesh`` of the card:
+   train 4 x 1024 (two microbatches), prefill 4 x 1024, decode at batch
+   4 against a 2048-token cache. Each cell's ``meta`` record
+   (``launch.dryrun.cell_record``), then the same cell drawn on the card
+   from ``--seed`` (``launch.specs.build_cell(generator=...)``): its
+   arguments' bytes (numel x element size) must equal the record's
+   ``arguments_bytes``, its donated arguments' its ``alias_bytes``, and
+   ``FlopCounterMode`` over one call its ``flops_global``, exactly; the
+   increase of ``max_memory_allocated`` over one call printed beside the
+   estimate (output + temp - alias; a miss is printed, not failed); the
+   call timed (CUDA events, median of 5 after a warm-up) with its
+   TFLOP/s beside the bf16 peak. The prefill once more with
+   ``attn_impl="flash"``: exactly 16 flash launches, logits within
+   5e-2 x max|chunked| (bf16), and one flash call on its captured q/k/v
+   timed beside plain, ``scaled_dot_product_attention`` and its bound.
+   Then ``run_cell`` for every applicable shape of llama3.2-1b,
+   olmoe-1b-7b and mamba2-1.3b on the single-pod mesh of ``meta``
+   positions: every cell must build. That sweep runs on the CPU after
+   phase 19, so it overlaps no timed phase, one process a cell, all
+   started together; its seconds are printed.
+19. Path ``examples``: each example twin's ``main`` in-process
+   (``quickstart``, ``occam_cnn_pipeline``, ``serve_pipeline``,
+   ``async_serve`` with its mesh positions on ``cuda:0``,
+   ``train_tiny_lm --steps 20`` with a restart from its step-10
+   checkpoint), each one's own checks holding and its seconds printed,
+   each kernel's launch counter read before and after: ``quickstart``
+   and ``async_serve`` must launch the fused span, ``serve_pipeline``
+   flash and the SSD scan. The first call of each kernel is captured,
+   held against its plain version and timed as in phases 4, 7 and 10.
+
 The line before the last is the kernels' JSON summary, one record per
 path with that path's launches, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible GPU, or outside a
@@ -316,6 +350,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 FP32_TFLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 TF32_TFLOPS = 495e12    # H100 SXM TF32 on the tensor cores, dense
+BF16_TFLOPS = 989e12    # H100 SXM bf16 and fp16 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
 C, P = "conv", "pool"
 SMALL_CASES = [
@@ -470,6 +505,20 @@ PIPE_REPLICAS = (2, 2, 2, 1)
 # positions, and the compressed all-reduce over 4 data positions
 EP_PATH = "olmoe-1b-7b-ep"
 EP_MESH = (1, 4)
+# phase 18: Llama-3.2-1B's dry-run cells, (kind, seq, batch); the sweep's
+# architectures
+DRYRUN_PATH = "llama3.2-1b-dryrun"
+DRYRUN_CELLS = (("train", 1024, 4), ("prefill", 1024, 4),
+                ("decode", 2048, 4))
+DRYRUN_SWEEP_ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "mamba2-1.3b")
+SWEEP_CODE = """\
+import sys, time
+from repro_torch.launch import dryrun
+t0 = time.perf_counter()
+rec = dryrun.run_cell(sys.argv[1], sys.argv[2], False)
+print(dryrun.fmt(rec), f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+"""
+EXAMPLES_PATH = "examples"
 
 
 def he_params(net, rng):
@@ -527,19 +576,20 @@ def flash_cost(b, hq, hkv, sq, sk, d, causal, itemsize=4):
     """(FLOP, bytes, bound ms, bound_by, fp32 CUDA-core bound ms) of one
     flash-attention call. FLOP count 4 * d per (query, key) pair the mask
     lets through (2 * d for q . k, 2 * d for p * v); bytes count q and o
-    once and k and v once per kv head. The bound is at the rate of the
-    units the kernel runs its products on: the TF32 tensor cores, with
-    three products per multiply-add in fp32 (3xTF32: big x big, big x
-    small, small x big) and one in bf16 or fp16 (one TF32 pass). The last
-    value is the same FLOP on the fp32 CUDA cores (67 TFLOP/s, the bound
-    of the kernel before it used the tensor cores), for comparison."""
+    once and k and v once per kv head. In fp32 the bound is at the TF32
+    tensor cores' rate with three products per multiply-add (3xTF32: big
+    x big, big x small, small x big); in bf16 or fp16 it is at the card's
+    peak for the type, the bf16/fp16 tensor rate, whatever units the
+    kernel runs its products on. The last value is the same FLOP on the
+    fp32 CUDA cores (67 TFLOP/s, the bound of the kernel before it used
+    the tensor cores), for comparison."""
     offset = max(sk - sq, 0)
     pairs = (sum(min(r + offset + 1, sk) for r in range(sq)) if causal
              else sq * sk)
     flop = 4 * d * pairs * b * hq
     nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * itemsize
-    products = 3 if itemsize == 4 else 1
-    t_ops = products * flop / TF32_TFLOPS * 1e3
+    t_ops = (3 * flop / TF32_TFLOPS if itemsize == 4
+             else flop / BF16_TFLOPS) * 1e3
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     return flop, nbytes, max(t_ops, t_mem), \
         "operations" if t_ops >= t_mem else "bytes", \
@@ -2813,10 +2863,10 @@ def training_phase(torch, seed, compare) -> dict:
 
 
 def flash_record(torch, compare, path, case, n, launches, err, qkv=None,
-                 seed=0, dev="cuda"):
+                 seed=0, dev="cuda", rel=1e-3):
     """Time one flash call at ``case`` (B, Hq, Hkv, Sq, Skv, D, causal) on
     ``qkv`` (default: random inputs from ``seed``), held against plain
-    (1e-3 x max|plain|), beside its plain version,
+    (``rel`` x max|plain|), beside its plain version,
     ``scaled_dot_product_attention`` and its bound, each counted ``n``
     times (the calls of one unit of the path). Returns the path's flash
     record, its ``max_abs_err`` the larger of ``err`` and this call's."""
@@ -2834,7 +2884,7 @@ def flash_record(torch, compare, path, case, n, launches, err, qkv=None,
     plain = flash_attention_plain_call(q, k, v, causal=causal)
     k_err, scale = compare(f"{path} flash call vs plain",
                            fkernel.flash_attention_cuda_call(
-                               q, k, v, causal=causal), plain, rel=1e-3)
+                               q, k, v, causal=causal), plain, rel=rel)
     k_ms = time_ms(torch, lambda: fkernel.flash_attention_cuda_call(
         q, k, v, causal=causal))
     p_ms = time_ms(torch, lambda: flash_attention_plain_call(
@@ -2842,9 +2892,11 @@ def flash_record(torch, compare, path, case, n, launches, err, qkv=None,
     l_ms = time_ms(torch, lambda: torch.nn.functional.
                    scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                 enable_gqa=True))
-    flop, nbytes, bound, bound_by, _ = flash_cost(*case)
+    flop, nbytes, bound, bound_by, _ = flash_cost(
+        *case, itemsize=q.element_size())
     print(f"time {path} flash {case[:-1]} "
-          f"{'causal' if causal else 'non-causal'} fp32: kernel {k_ms:.4f} "
+          f"{'causal' if causal else 'non-causal'} "
+          f"{str(q.dtype).removeprefix('torch.')}: kernel {k_ms:.4f} "
           f"ms, plain {p_ms:.4f} ms, scaled_dot_product_attention "
           f"{l_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
           f"max|kernel-plain| {k_err:.3e} (max|plain| {scale:.3e}); "
@@ -3260,6 +3312,275 @@ def _ep_prefill(api, params, prompt, s_max, mesh):
         return api.prefill(params, prompt, s_max)
 
 
+def dryrun_phase(torch, seed, compare, dev) -> list:
+    """Phase 18, paths ``llama3.2-1b-dryrun-{train,prefill,decode}``: each
+    cell's ``meta`` record held against the same cell drawn on the card
+    (bytes and FLOPs exactly; the peak of one call printed beside the
+    estimate), timed; the prefill through flash. Returns the flash record
+    of the prefill path."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.stap_pipeline import DeviceMesh, _grid
+
+    cfg = get_config("llama3.2-1b")
+    mesh = DeviceMesh(_grid([dev], (1, 1)), ("data", "model"))
+    flash_rec = None
+    for kind, seq, batch in DRYRUN_CELLS:
+        path = f"{DRYRUN_PATH}-{kind}"
+        shape = ShapeCfg(f"{kind}_{batch}x{seq}", seq, batch, kind)
+        ctx = specs.make_ctx(mesh, False, shape)
+        t0 = time.perf_counter()
+        rec = dryrun.cell_record(cfg, shape, ctx)
+        t_meta = time.perf_counter() - t0
+        mem, cost = rec["memory_per_device"], rec["cost_per_device"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        cell = specs.build_cell(
+            cfg, shape, ctx, generator=torch.Generator(dev).manual_seed(seed))
+        leaves = [dryrun.flat_leaves(a, torch.Tensor) for a in cell.args]
+        nbytes = [sum(t.numel() * t.element_size() for t in ts)
+                  for ts in leaves]
+        donated = sum(nbytes[i] for i in cell.donate_argnums)
+        if (sum(nbytes), donated) != (mem["arguments_bytes"],
+                                      mem["alias_bytes"]):
+            raise AssertionError(
+                f"{path}: arguments {sum(nbytes)} B, donated {donated} B on "
+                f"the card; the record says {mem['arguments_bytes']} and "
+                f"{mem['alias_bytes']}")
+        with FlopCounterMode(display=False) as counter:
+            out = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        if counter.get_total_flops() != cost["flops_global"]:
+            raise AssertionError(f"{path}: {counter.get_total_flops()} FLOP "
+                                 f"on the card, {cost['flops_global']} in "
+                                 f"the record")
+        del out
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        head = out[0] if kind != "train" else out["loss"]
+        if not bool(torch.isfinite(head.float()).all()):
+            raise AssertionError(f"{path}: non-finite output")
+        if kind != "train" and tuple(head.shape) != (batch, 1,
+                                                     cfg.vocab_padded):
+            raise AssertionError(f"{path}: logits {tuple(head.shape)}")
+        if kind == "prefill":
+            chunked_logits = head
+        del out, head
+        est = mem["output_bytes"] + mem["temp_bytes"] - mem["alias_bytes"]
+        ms = time_ms(torch, lambda: cell.fn(*cell.args))
+        flops = cost["flops_global"]
+        print(f"{path} ({cell.label}): meta record in {t_meta:.1f} s; on "
+              f"the card arguments {sum(nbytes)} B == arguments_bytes, "
+              f"donated {donated} B == alias_bytes, {flops} FLOP == "
+              f"flops_global ({cost['n_dots']} matrix products); peak of "
+              f"one call {peak / 1e9:.4f} GB beside the estimate output + "
+              f"temp - alias {est / 1e9:.4f} GB "
+              f"({peak / max(est, 1):.4f}x; output + temp "
+              f"{(mem['output_bytes'] + mem['temp_bytes']) / 1e9:.4f} GB)")
+        print(f"time {path}: {ms:.3f} ms (CUDA events, median of 5), "
+              f"{flops / ms / 1e9:.2f} TFLOP/s = "
+              f"{flops / ms / 1e9 / (BF16_TFLOPS / 1e12) * 100:.2f}% of the "
+              f"bf16 peak {BF16_TFLOPS / 1e12:.0f} TFLOP/s")
+        if kind != "prefill":
+            del cell
+            continue
+        # the prefill once more through the flash kernel
+        api = build_model(cfg, device=dev, attn_impl="flash")
+        params, batch_in = cell.args
+        calls = []
+        cuda_call = fops.flash_attention_cuda_call
+
+        def capture(q, k, v, *, causal=True, **kw):
+            if not calls:
+                calls.append((q, k, v, causal))
+            return cuda_call(q, k, v, causal=causal, **kw)
+
+        fops.flash_attention_cuda_call = capture
+        fkernel.launches = 0
+        try:
+            logits, _ = api.prefill(params, batch_in, seq)
+            torch.cuda.synchronize()
+        finally:
+            fops.flash_attention_cuda_call = cuda_call
+        launches = fkernel.launches
+        if launches != cfg.n_layers:
+            raise AssertionError(f"{path}: {launches} flash launches, want "
+                                 f"{cfg.n_layers}")
+        err, scale = compare(f"{path} logits, flash vs chunked", logits,
+                             chunked_logits, rel=5e-2)
+        print(f"{path} through flash: {launches} launches, logits "
+              f"max|flash-chunked| {err:.3e} (max|chunked| {scale:.3e}, "
+              f"band 5e-2 x max|chunked|, bf16)")
+        q, k, v, causal = calls[0]
+        case = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                q.shape[3], causal)
+        flash_rec = flash_record(torch, compare, path, case, launches,
+                                 launches, 0.0, qkv=(q, k, v), rel=5e-2)
+        del api, params, batch_in, cell, logits, chunked_logits, calls
+    return [flash_rec]
+
+
+def sweep_phase() -> None:
+    """Phase 18's sweep, after the timed phases: ``run_cell`` for every
+    applicable shape of ``DRYRUN_SWEEP_ARCHS`` on the single-pod mesh of
+    ``meta`` positions, each cell in a CPU process of its own, all started
+    together; every cell must build."""
+    from repro_torch.configs import applicable_shapes, get_config
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    cells = [(a, shape) for a in DRYRUN_SWEEP_ARCHS
+             for shape in applicable_shapes(get_config(a))]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for cell in cells:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", SWEEP_CODE, *cell],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env, cwd=ROOT))
+        for (arch, shape), proc in zip(cells, procs):
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"dry run {arch}/{shape} exited "
+                                     f"{proc.returncode}: {err[-2000:]}")
+            print(f"  dry run {out.strip()}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+    print(f"dry-run sweep of {DRYRUN_SWEEP_ARCHS} on the single-pod mesh of "
+          f"meta positions: {len(cells)} cells built in "
+          f"{time.perf_counter() - t0:.1f} s (host clock; one process a "
+          f"cell, on {os.cpu_count()} CPU cores)")
+
+
+def examples_phase(torch, compare, time_span) -> list:
+    """Phase 19, path ``examples``: each example twin's ``main`` on the
+    card, its launches per kernel counted; the first call of each kernel
+    captured, held against its plain version and timed. Returns the
+    path's fused-span, flash and SSD-scan records."""
+    from repro_torch.examples import (async_serve, occam_cnn_pipeline,
+                                      quickstart, serve_pipeline,
+                                      train_tiny_lm)
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.fused_span import kernel as span_kernel
+    from repro_torch.kernels.fused_span import ops as span_ops
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain_call
+
+    first = {}
+    wrapped = [(span_ops, "span_cuda_call"),
+               (fops, "flash_attention_cuda_call"),
+               (sops, "ssd_scan_cuda_call")]
+    originals = {name: getattr(mod, name) for mod, name in wrapped}
+
+    def capturing(name):
+        def call(*args, **kw):
+            first.setdefault(name, (args, kw))
+            return originals[name](*args, **kw)
+        return call
+
+    counters = (span_kernel, fkernel, skernel)
+    runs = [("quickstart", quickstart.main, []),
+            ("occam_cnn_pipeline", occam_cnn_pipeline.main, []),
+            ("serve_pipeline", serve_pipeline.main, []),
+            ("async_serve", async_serve.main, []),
+            ("train_tiny_lm", train_tiny_lm.main, ["--steps", "20"])]
+    launched = {}
+    for mod, name in wrapped:
+        setattr(mod, name, capturing(name))
+    try:
+        for name, main_fn, argv in runs:
+            before = [c.launches for c in counters]
+            t0 = time.perf_counter()
+            out = main_fn(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched[name] = [c.launches - b for c, b in zip(counters,
+                                                             before)]
+            print(f"{EXAMPLES_PATH} {name} {' '.join(argv)}: "
+                  f"{secs:.2f} s (host clock); launches: fused span "
+                  f"{launched[name][0]}, flash {launched[name][1]}, SSD "
+                  f"scan {launched[name][2]}")
+            if name == "serve_pipeline":
+                for arch, r in out.items():
+                    if not bool((r["tokens"] >= 0).all()) or tuple(
+                            r["tokens"].shape) != (4, 16):
+                        raise AssertionError(f"{name} {arch} tokens")
+            if name == "train_tiny_lm" and not all(
+                    math.isfinite(x) for x in out["losses_phase2"]):
+                raise AssertionError(f"{name}: a loss is not finite")
+    finally:
+        for mod, name in wrapped:
+            setattr(mod, name, originals[name])
+    for name, idx in (("quickstart", 0), ("async_serve", 0),
+                      ("serve_pipeline", 1), ("serve_pipeline", 2)):
+        if not launched[name][idx]:
+            raise AssertionError(f"{EXAMPLES_PATH} {name} launched no "
+                                 f"{('fused span', 'flash', 'SSD scan')[idx]}")
+    totals = [sum(v[i] for v in launched.values()) for i in range(3)]
+
+    # the fused span's first call (quickstart's), as in phase 4
+    (xs, span_params, net, a, b), kw = first["span_cuda_call"]
+    kw = dict(kw, srcs=dict(kw.get("srcs") or {}))
+    span_rec = new_record()
+    span_rec["launches"] = totals[0]
+    got, _ = span_kernel.span_cuda_call(xs, span_params, net, a, b, **kw)
+    want, _ = span_ops.span_plain_call(xs, span_params, net, a, b, **kw)
+    span_rec["max_abs_err"], _ = compare(f"{EXAMPLES_PATH} span ({a}, {b})",
+                                         got, want, 1e-4, 1e-4)
+    time_span(EXAMPLES_PATH, net, [{}] * a + list(span_params), xs, a, b,
+              {k: kw[k] for k in ("srcs", "spill")}, span_rec)
+
+    # flash's first call (serve_pipeline's Llama prefill), as in phase 7
+    (q, k, v), kw = first["flash_attention_cuda_call"]
+    causal = kw.get("causal", True)
+    case = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+            causal)
+    flash_rec = flash_record(torch, compare, EXAMPLES_PATH, case, 1,
+                             totals[1], 0.0, qkv=(q, k, v))
+
+    # the SSD scan's first call (serve_pipeline's Mamba2 prefill)
+    (x, a_, b_, c_), kw = first["ssd_scan_cuda_call"]
+    got, _ = skernel.ssd_scan_cuda_call(x, a_, b_, c_, **kw)
+    want, _ = ssd_scan_plain_call(x, a_, b_, c_, **kw)
+    scale = max(float(want.abs().max()), 1.0)
+    ssd_err, _ = compare(f"{EXAMPLES_PATH} ssd scan vs plain", got, want,
+                         rtol=0.0, atol=2e-5 * scale)
+    k_ms = time_ms(torch, lambda: skernel.ssd_scan_cuda_call(
+        x, a_, b_, c_, **kw))
+    p_ms = time_ms(torch, lambda: ssd_scan_plain_call(x, a_, b_, c_, **kw))
+    bsz, t, h, p_ = x.shape
+    flop, nbytes, bound, bound_by = ssd_cost(
+        bsz, t, h, b_.shape[2], p_, b_.shape[3],
+        kw.get("state0") is not None, itemsize=x.element_size())
+    print(f"time {EXAMPLES_PATH} ssd scan x {tuple(x.shape)}: kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({bound_by}); max|kernel-plain| {ssd_err:.3e} (band 2e-5 x "
+          f"max(|plain|, 1))")
+    ssd_rec = {"name": "ssd_scan", "path": EXAMPLES_PATH, "route": "cuda",
+               "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+               "replaces": "src/repro/kernels/ssd_scan/kernel.py:79",
+               "launches": totals[2], "max_abs_err": ssd_err, "ms": k_ms,
+               "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": None}
+    return [span_rec, flash_rec, ssd_rec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3599,6 +3920,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pipe_rec = pipeline_phase(torch, args.seed, compare, dev)
+    gc.collect()  # the pipeline's tensors go before the dry run's
+    torch.cuda.empty_cache()
+    dry_recs = dryrun_phase(torch, args.seed, compare, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    span_rec, *example_recs = examples_phase(torch, compare, time_span)
+    paths[EXAMPLES_PATH] = span_rec
+    sweep_phase()
 
     # fused-span times: one batch-8 run of ResNet-18's five spans, one
     # batch-4 run of AlexNet's span, one batch-8 run of each policy plan's
@@ -3626,7 +3955,8 @@ def main() -> int:
         "library_ms": rec["library_ms"],
     } for name, rec in paths.items()] + [flash_rec, ssd_rec, olmoe_rec,
                                          ep_rec, seamless_rec, train_rec,
-                                         pipe_rec]}))
+                                         pipe_rec, *dry_recs,
+                                         *example_recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

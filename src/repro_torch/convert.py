@@ -124,6 +124,22 @@ def lm_caches_from_numpy(caches, cfg, device: str | torch.device = "cpu"):
     return out
 
 
+def reference_path(name: str, cfg) -> tuple[tuple[str, ...], int | None]:
+    """The reference's tree path of the port's parameter ``name`` (as
+    ``named_parameters()`` gives it) and, for a leaf stacked on a leading
+    period or layer axis there, the index on that axis (``None`` for an
+    unstacked leaf)."""
+    head, *rest = name.split(".")
+    if head == "layers":
+        l = int(rest[0])
+        return ("periods", f"sub_{l % cfg.period}", *rest[1:]), l // cfg.period
+    if head in ("enc_layers", "dec_layers"):
+        return (head[:3], "periods", "sub_0", *rest[1:]), int(rest[0])
+    if head == "enc_norm":
+        return ("enc", "enc_norm"), None
+    return (head,), None
+
+
 def lm_params_to_numpy(params, cfg, tensors=None) -> dict:
     """The inverse of :func:`lm_params_from_numpy`: the reference's
     stacked parameter tree, as numpy (bfloat16 as float32), of the port's
@@ -147,18 +163,11 @@ def lm_params_to_numpy(params, cfg, tensors=None) -> dict:
     for (name, _), t in zip(named, values):
         arr = t.detach().cpu()
         arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
-        head, *rest = name.split(".")
-        if head == "layers":
-            l, rest = int(rest[0]), rest[1:]
-            path = ("periods", f"sub_{l % cfg.period}", *rest)
-            stacks.setdefault(path, {})[l // cfg.period] = arr
-        elif head in ("enc_layers", "dec_layers"):
-            path = (head[:3], "periods", "sub_0", *rest[1:])
-            stacks.setdefault(path, {})[int(rest[0])] = arr
-        elif head == "enc_norm":
-            put(("enc", "enc_norm"), arr)
+        path, index = reference_path(name, cfg)
+        if index is None:
+            put(path, arr)
         else:
-            put((head,), arr)
+            stacks.setdefault(path, {})[index] = arr
     for path, by_layer in stacks.items():
         put(path, np.stack([by_layer[i] for i in range(len(by_layer))]))
     return tree

@@ -1,17 +1,21 @@
-"""Unified model API for the LM side: ``build_model(cfg)`` returns a
-ModelAPI whose functions train and serve a decoder-only or an
-encoder-decoder LM (init, train_loss, prefill, decode_step, init_caches),
+"""Unified model API — and the deprecated one-call CNN executor shims,
 the port of ``repro/models/api.py``.
 
-``train_loss`` always runs the chunked attention and SSD twins, whatever
-``attn_impl`` and ``ssd_impl`` say: the reference trains through XLA,
-not its Pallas kernels, and neither CUDA kernel has a backward. The
-deprecated CNN shims (``span_executor``, ``stap_executor``) are not
-ported: their staged replacement is ``repro_torch.occam``.
+* ``build_model(cfg)`` returns a ModelAPI whose functions train and serve
+  a decoder-only or an encoder-decoder LM (init, train_loss, prefill,
+  decode_step, init_caches). ``train_loss`` always runs the chunked
+  attention and SSD twins, whatever ``attn_impl`` and ``ssd_impl`` say:
+  the reference trains through XLA, not its Pallas kernels, and neither
+  CUDA kernel has a backward.
+* ``span_executor`` / ``stap_executor`` — the legacy one-call CNN entry
+  points, thin **deprecated** shims over the staged deployment API
+  (``repro_torch.occam``: ``plan -> place -> compile -> run``), which
+  new code uses directly.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable
 
 import torch
@@ -56,7 +60,10 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
     kernel on the GPU, its plain version on the CPU) or ``"chunked"`` (the
     twin of the reference's ``ssd_chunked``); ``train_loss(params,
     batch)`` always takes the chunked twins. ``init(generator)`` draws
-    the parameters with a ``torch.Generator`` on ``device``. An
+    the parameters with a ``torch.Generator`` on ``device``; on
+    ``device="meta"``, ``init()`` builds the same modules of ``meta``
+    tensors and draws nothing (the twin of the reference's
+    ``jax.eval_shape(api.init, key)``). An
     encoder-decoder config (``cfg.is_enc_dec``) gets the enc-dec stack,
     whose prefill reads ``enc_embeds`` and ``tokens`` from the batch and
     whose ``init_caches(b, s_max, s_enc=None)`` sizes the cross caches
@@ -70,7 +77,13 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
                          f"got {ssd_impl!r}")
     dev = resolve_device(device)
 
-    def init(generator: torch.Generator) -> torch.nn.Module:
+    def init(generator: torch.Generator | None = None) -> torch.nn.Module:
+        if generator is None:
+            if dev.type != "meta":
+                raise ValueError(f"init draws the parameters with a "
+                                 f"generator on {dev}; only a model on "
+                                 f"the meta device builds without one")
+            generator = layers.META_DRAW
         if generator.device.type != dev.type:
             raise ValueError(f"the generator lies on {generator.device}; "
                              f"the model on {dev}")
@@ -104,6 +117,61 @@ def build_model(cfg: ModelCfg, dtype=torch.bfloat16,
         init_caches=lambda b, s_max, s_enc=None:
             transformer.init_decoder_caches(cfg, b, s_max, dtype, dev),
     )
+
+
+def span_executor(params: list[dict], xs, net, capacity_elems: int, *,
+                  counter=None, device=None):
+    """Deprecated shim: single-device Occam execution in one call.
+
+    Equivalent to ``occam.plan(net, capacity_elems, batch=B).place()
+    .compile(device=device).run(params, xs)`` (bit-identical — the staged
+    API runs the same DP, routes, and engines; ``device=None`` is the
+    GPU). Returns ``(y, result)`` where ``result`` is the executed
+    :class:`~repro_torch.core.partition.PartitionResult`.
+    """
+    warnings.warn(
+        "span_executor is deprecated; use repro_torch.occam: "
+        "plan(net, capacity).place().compile().run(params, xs)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch import occam
+
+    batch = xs.shape[0] if xs.ndim == 4 else 1
+    dep = occam.plan(net, capacity_elems, batch=batch).place() \
+        .compile(device=device)
+    y = dep.run(params, xs, counter=counter)
+    return y, dep.plan.partition
+
+
+def stap_executor(params: list[dict], xs, net, capacity_elems: int, *,
+                  microbatch: int = 1, stage_times=None, max_chips=None,
+                  max_replicas=None, target_period=None, mesh=None,
+                  devices=None, counter=None, device=None):
+    """Deprecated shim: multi-chip STAP pipeline execution in one call.
+
+    Equivalent to ``occam.plan(net, capacity_elems, batch=microbatch)
+    .place(chips=max_chips, stage_times=..., pipeline=True)
+    .compile(device=device).run(params, xs)`` (bit-identical — same plan
+    defaulting, same pipeline program). Returns ``(y, pipeline)`` where
+    ``pipeline`` is the compiled
+    :class:`~repro_torch.runtime.stap_pipeline.StapPipeline`.
+    """
+    warnings.warn(
+        "stap_executor is deprecated; use repro_torch.occam: "
+        "plan(net, capacity, batch=microbatch).place(chips=..., "
+        "pipeline=True).compile().run(params, xs)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch import occam
+
+    if xs.ndim != 4:
+        raise ValueError("stap_executor streams batched (B, H, W, C)")
+    dep = occam.plan(net, capacity_elems, batch=microbatch) \
+        .place(chips=max_chips, stage_times=stage_times,
+               max_replicas=max_replicas, target_period=target_period,
+               microbatch=microbatch, mesh=mesh, devices=devices,
+               pipeline=True) \
+        .compile(device=device)
+    y = dep.run(params, xs, counter=counter)
+    return y, dep.pipeline(xs.shape[0])
 
 
 def make_batch(cfg: ModelCfg, batch: int, seq: int,

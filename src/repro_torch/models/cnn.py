@@ -14,6 +14,10 @@ dimension is written out where the reference mapped over images.
   is the CUDA kernel's plain version.
 * ``_stream_span`` + ``RowRing`` — the interpreted per-row loop, kept as
   the executable specification: its reads check the retention invariant.
+* ``occam_forward`` — the whole net span by span through either of the
+  two (``mode="compiled"``: the scan engine; ``"interpreted"``: the
+  RowRing loop), with transfers counted; ``occam_forward_jit`` is the
+  same call (eager PyTorch has nothing to jit).
 
 Off-chip transfers are counted per span boundary (``count_span_reads`` /
 ``count_span_writes``), identically for every engine, and checked against
@@ -203,6 +207,65 @@ def count_span_writes(counter: TrafficCounter | None, net: NetSpec, b: int,
 # The scan engine's span body: SPAN(a, b) on a batch by its static
 # schedule, which is the fused-span kernel's plain version.
 span_scan = ref.span_plain
+
+
+def occam_forward(params: list[dict], x: torch.Tensor, net: NetSpec,
+                  boundaries: list[int] | None = None,
+                  counter: TrafficCounter | None = None,
+                  mode: str = "compiled") -> torch.Tensor:
+    """Execute the net span-by-span with closure-sized ring buffers.
+
+    ``x``: a (B, H, W, C) batch or one (H, W, C) image (the reference's
+    signature). ``boundaries``: interior partition points (from the DP).
+    ``counter`` accumulates off-chip element transfers for
+    model-vs-machine validation, per image of the batch. ``mode``:
+    "compiled" (the scan engine: :data:`span_scan` over each span's
+    static schedule) or "interpreted" (the Python RowRing loop — the
+    executable specification).
+    """
+    from repro_torch.occam import registry
+    from repro_torch.runtime import span_engine
+
+    if mode not in ("compiled", "interpreted"):
+        raise ValueError(f"bad mode {mode!r}")
+    engine = registry.get_engine(span_engine.ROUTE_SCAN if mode == "compiled"
+                                 else span_engine.ROUTE_INTERPRETED)
+    squeeze = x.ndim == 3
+    xs = x[None] if squeeze else x
+    batch = xs.shape[0]
+    boundaries = list(boundaries or [])
+    cuts = [0] + boundaries + [net.n_layers]
+    stored: dict[int, torch.Tensor] = {0: xs}
+    for a, b in zip(cuts, cuts[1:]):
+        # residual edges that cross a partition boundary spill their source
+        spill = span_engine.span_spills(net, boundaries, a, b)
+        count_span_reads(counter, net, a, b, batch)
+        out, spilled = engine.run(params, net, a, b, stored, spill)
+        count_span_writes(counter, net, b, spilled, batch)
+        stored[b] = out
+        stored.update(spilled)
+    y = stored[net.n_layers]
+    return y[0] if squeeze else y
+
+
+def occam_forward_jit(params, x: torch.Tensor, net: NetSpec,
+                      boundaries: tuple[int, ...] = ()) -> torch.Tensor:
+    """Whole-net Occam execution through the scan engine, the twin of the
+    reference's single-jit call: the same as :func:`occam_forward` in
+    ``"compiled"`` mode without a counter, since eager PyTorch has
+    nothing to jit. ``boundaries`` is a tuple, as the reference's static
+    argument."""
+    return occam_forward(params, x, net, list(boundaries), None, "compiled")
+
+
+def params_w(span_params, off: int) -> torch.Tensor:
+    """The weights of map ``a + off``'s layer among a span's params."""
+    return span_params[off - 1]["w"]
+
+
+def params_b(span_params, off: int) -> torch.Tensor:
+    """The bias of map ``a + off``'s layer among a span's params."""
+    return span_params[off - 1]["b"]
 
 
 def _stream_span(params: list[dict], net: NetSpec, a: int, b: int,

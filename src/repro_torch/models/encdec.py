@@ -29,7 +29,8 @@ from repro_torch.configs.base import ModelCfg
 
 from . import layers
 from .layers import KVCache, maybe_checkpoint
-from .transformer import DecoderLayer, chunked_cross_entropy, unembed
+from .transformer import (DecoderLayer, chunked_cross_entropy, shard_caches,
+                          unembed)
 
 
 class CrossCache(NamedTuple):
@@ -243,6 +244,7 @@ def encdec_prefill(params: EncDecParams, batch: dict, cfg: ModelCfg,
     caches = init_encdec_caches(cfg, tokens.shape[0], s_max,
                                 enc_embeds.shape[1], enc_embeds.dtype,
                                 device)
+    caches = shard_caches(caches)
     x, caches = decoder_forward(params, tokens, memory, cfg, caches=caches,
                                 attn_impl=attn_impl)
     return unembed(params, x[:, -1:, :], cfg), caches

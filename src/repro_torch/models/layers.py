@@ -178,9 +178,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Attention sublayer (projections + rope + cache plumbing)
 # --------------------------------------------------------------------------
 
+class _MetaDraw:
+    """Stands in for a generator on the ``meta`` device, which has none
+    (``torch.Generator(device="meta")`` raises): the init functions put
+    each tensor on its ``device`` and :func:`normal_init` draws nothing."""
+
+    device = torch.device("meta")
+
+
+META_DRAW = _MetaDraw()
+
+
 def normal_init(generator: torch.Generator, shape, std: float, dtype):
-    return torch.empty(shape, dtype=dtype, device=generator.device).normal_(
-        0.0, std, generator=generator)
+    t = torch.empty(shape, dtype=dtype, device=generator.device)
+    return t if t.is_meta else t.normal_(0.0, std, generator=generator)
 
 
 def init_attention(generator: torch.Generator, cfg, d_model=None,

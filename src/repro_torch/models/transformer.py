@@ -17,8 +17,12 @@ each SSD chunk and each cross-entropy chunk is checkpointed, as the
 reference's ``jax.checkpoint``s (the reference nests per-period and
 per-sublayer checkpoints; here a layer is a sublayer, so one per layer).
 
-Not ported yet: ``param_spec_tree``, ``shard_caches`` and ``cache_axes``
-(TPU-mesh sharding, ROADMAP Queue A 3.5). ``_carry_barrier`` is an XLA
+Parameter sharding is rule-based, as the reference's
+(``param_spec_tree``: Megatron TP on the model axis + ZeRO/FSDP on the
+data axis, MoE experts EP-sharded), keyed by ``named_parameters()``;
+``launch/specs.py`` resolves the specs on a mesh and the dry run counts
+their bytes. ``shard_caches``, like ``sharding.shard``, changes no value:
+eager PyTorch has no partitioner. ``_carry_barrier`` is an XLA
 scheduling pin with no eager counterpart.
 """
 from __future__ import annotations
@@ -116,6 +120,59 @@ def init_decoder_params(cfg: ModelCfg, generator: torch.Generator,
                        moe=moe.init_moe(generator, d, cfg.moe, dtype))
         stack.append(DecoderLayer(ones(), **mix))
     return DecoderParams(embed, ones(), stack, lm_head)
+
+
+# --------------------------------------------------------------------------
+# Sharding rules (symbolic; resolved by repro_torch.models.sharding)
+# --------------------------------------------------------------------------
+
+_COL = ("data", "model")     # column-parallel: (in=FSDP, out=TP)
+_ROW = ("model", "data")     # row-parallel:    (in=TP, out=FSDP)
+
+_RULES_2D = {
+    "wq": _COL, "wk": _COL, "wv": _COL, "w1": _COL, "w3": _COL,
+    "wz": _COL, "wx": _COL, "wB": _COL, "wC": _COL, "wdt": _COL,
+    "wo": _ROW, "w2": _ROW,
+    # embed: vocab REPLICATED, d_model TP-sharded — the token gather and its
+    # backward scatter-add stay local (a vocab-sharded table makes GSPMD
+    # replicate the (V, D) fp32 gradient: 4 x 2 GiB/device at jamba scale).
+    "embed": (None, "model"), "lm_head": ("data", "model"),
+    "router": ("data", None), "conv_w": (None, "model"),
+}
+_RULES_1D = {
+    "bq": ("model",), "bk": ("model",), "bv": ("model",),
+    "conv_b": ("model",), "norm": ("model",),
+    "dt_bias": ("model",), "A_log": ("model",), "D": ("model",),
+    "final_norm": (None,), "norm1": (None,), "norm2": (None,),
+    "norm_x": (None,), "enc_norm": (None,),
+}
+_RULES_3D_MOE = {  # (E, D, F) / (E, F, D)
+    "w1": ("model", "data", None), "w3": ("model", "data", None),
+    "w2": ("model", None, "data"),
+}
+
+
+def param_spec_tree(params: nn.Module) -> dict[str, tuple]:
+    """Symbolic partition-spec tuples, ``{name: spec}`` keyed by
+    ``params.named_parameters()`` (a decoder's or an encoder-decoder's).
+    Each is the reference's rule for that leaf without the leading
+    ``None`` of its stacked period axis: the port keeps one module per
+    layer."""
+
+    def rule(name: str, leaf: torch.Tensor) -> tuple:
+        names = name.split(".")
+        leaf_name, nd = names[-1], leaf.ndim
+        if "moe" in names and nd == 3 and leaf_name in _RULES_3D_MOE:
+            return _RULES_3D_MOE[leaf_name]
+        if nd == 2 and leaf_name in _RULES_2D:
+            return _RULES_2D[leaf_name]
+        if nd == 1 and leaf_name in _RULES_1D:
+            return _RULES_1D[leaf_name]
+        if nd <= 1:
+            return (None,) * nd
+        raise ValueError(f"no sharding rule for {name} ndim={nd}")
+
+    return {name: rule(name, p) for name, p in params.named_parameters()}
 
 
 # --------------------------------------------------------------------------
@@ -292,6 +349,7 @@ def decoder_prefill(params: DecoderParams, batch: dict, cfg: ModelCfg,
     b, s = x.shape[0], x.shape[1]
     positions = _positions(batch, b, s, device)
     caches = init_decoder_caches(cfg, b, s_max, x.dtype, device)
+    caches = shard_caches(caches)
     x, new_caches, _ = decoder_stack(params, x, cfg, positions, caches,
                                      attn_impl=attn_impl, ssd_impl=ssd_impl)
     logits = unembed(params, x[:, -1:, :], cfg)
@@ -310,3 +368,28 @@ def decoder_decode_step(params: DecoderParams, tokens, caches, pos: int,
                                      cache_pos=int(pos))
     logits = unembed(params, x, cfg)
     return logits, new_caches
+
+
+def cache_axes(leaf_ndim: int) -> tuple | None:
+    """Symbolic layout per cache leaf, by the rank of the reference's
+    *stacked* leaf (a leading period axis): pass a port cache leaf's
+    ``ndim + 1`` and drop the leading ``None``.
+
+    Defaults (overridable via ShardCtx symbols): cache batch on "cache_b"
+    (data axes when the batch divides, else replicated — long_500k B=1),
+    KV sequence on "cache_s" (model axis: flash-decoding style, valid for
+    any head count; all data+model axes when the batch can't shard)."""
+    if leaf_ndim == 5:   # stacked KV: (P, B, S, H, D)
+        return (None, "cache_b", "cache_s", None, None)
+    if leaf_ndim == 6:   # stacked SSM state: (P, B, G, R, N, Ph)
+        return (None, "cache_b", None, "model", None, None)
+    if leaf_ndim == 4:   # stacked conv state: (P, B, K, C)
+        return (None, "cache_b", None, "model")
+    return None
+
+
+def shard_caches(caches):
+    """The reference's sharding constraint on every cache leaf (its spec
+    ``cache_axes(leaf.ndim + 1)[1:]``). Like ``sharding.shard`` it is the
+    identity: it returns ``caches``."""
+    return caches

@@ -7,7 +7,9 @@ the GPU against the CPU, the LMs' (Llama, Mamba2, OLMoE and the
 SeamlessM4T encoder-decoder) prefill and decode on the GPU against the
 CPU, a smoke train step on the GPU against the CPU, and what runs across
 mesh positions on one GPU (the LM pipeline against ``decoder_stack``,
-expert-parallel MoE and the compressed all-reduce against the CPU).
+expert-parallel MoE and the compressed all-reduce against the CPU), a
+dry-run cell drawn on the GPU against its ``meta`` record, and the
+quickstart example on the GPU.
 
 This file imports neither JAX nor ``repro``, so it runs on a GPU machine
 that has only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda
@@ -993,3 +995,43 @@ def test_allreduce_compressed_on_gpu_matches_cpu(cuda):
             assert got.device.type == "cuda"
             tol = 1e-6 * float(want.abs().max())
             torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dryrun_cell_on_gpu_equals_its_meta_record(cuda, kind):
+    """Phase 18 of chip_smoke.py at a smoke size: the cell drawn on the
+    card on a (1, 1) mesh holds exactly the record's argument and donated
+    bytes, and one run of it counts the record's FLOPs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import dryrun, specs
+
+    cfg, shape = get_smoke("llama3.2-1b"), ShapeCfg("s", 64, 4, kind)
+    ctx = specs.make_ctx(_one_gpu_mesh(cuda, (1, 1), ("data", "model")),
+                         False, shape)
+    rec = dryrun.cell_record(cfg, shape, ctx)
+    cell = specs.build_cell(cfg, shape, ctx,
+                            generator=torch.Generator(cuda).manual_seed(0))
+    leaves = [dryrun.flat_leaves(a, torch.Tensor) for a in cell.args]
+    nbytes = [sum(t.numel() * t.element_size() for t in ts) for ts in leaves]
+    mem = rec["memory_per_device"]
+    assert sum(nbytes) == mem["arguments_bytes"]
+    assert sum(nbytes[i] for i in cell.donate_argnums) == mem["alias_bytes"]
+    with FlopCounterMode(display=False) as counter:
+        cell.fn(*cell.args)
+    assert counter.get_total_flops() == rec["cost_per_device"][
+        "flops_global"]
+
+
+@pytest.mark.cuda
+def test_quickstart_example_on_gpu_launches_the_fused_span(cuda):
+    from repro_torch.examples import quickstart
+
+    before = kernel.launches
+    out = quickstart.main([])
+    assert kernel.launches > before
+    assert out["routes"] == ["pallas"] * len(out["routes"])
+    assert out["measured_elems"] == out["predicted_transfers"]
+    assert out["max_abs_err"] <= 1e-5

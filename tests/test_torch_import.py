@@ -46,7 +46,13 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.checkpoint.checkpointer",
                 "repro_torch.runtime.elastic", "repro_torch.launch.train_step",
                 "repro_torch.launch.train", "repro_torch.runtime.pipeline",
-                "repro_torch.models.sharding", "repro_torch.launch.mesh"):
+                "repro_torch.models.sharding", "repro_torch.launch.mesh",
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                "repro_torch.examples", "repro_torch.examples.quickstart",
+                "repro_torch.examples.occam_cnn_pipeline",
+                "repro_torch.examples.serve_pipeline",
+                "repro_torch.examples.async_serve",
+                "repro_torch.examples.train_tiny_lm"):
         assert mod in mods
     code = (
         "import importlib, sys\n"
