@@ -322,6 +322,28 @@ Dry run and the example twins (after the pipeline's tensors are freed):
    flash and the SSD scan. The first call of each kernel is captured,
    held against its plain version and timed as in phases 4, 7 and 10.
 
+The benchmark twins (after phase 19, before phase 18's sweep):
+
+20. Path ``benchmarks``: the harness ``repro_torch.benchmarks.run
+   --device cuda:0`` (its ``name,us_per_call,derived`` lines printed as
+   it goes) and the smoke pass, in-process, every twin at the
+   reference's own configs: the paper's tables, ``vgg_mini`` at 32x32
+   through the oracle, the interpreted loop, the scan engine and the
+   kernel route, ``vgg_stap`` at 64x64 with 16 images through the STAP
+   pipeline, its serving session and the async engine, autoplan, and
+   the 16x16 quant and calibrate nets; the fused span's launches counted
+   per twin. It fails on an output outside 1e-3 x max|oracle|, a
+   ``matches_prediction`` (bytes too under int8) that is false, a twin
+   whose spans route to the kernel and that launched it no time, a build
+   count other than 1, a document that fails its schema gate, or a twin
+   that raises. The speed ratios (scan and kernel over interpreted,
+   measured over predicted, calibrated over measured) are printed, not
+   gated. Then ``vgg_mini``'s three spans at batch 1: kernel against
+   plain (1e-4), timed as in phase 4. After the sweep (which writes its
+   records to ``results/torch_dryrun``), the roofline twin reads them:
+   every cell's compute term and model FLOPs, its memory and collective
+   terms ``None`` with the records' reasons.
+
 The line before the last is the kernels' JSON summary, one record per
 path with that path's launches, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible GPU, or outside a
@@ -515,10 +537,14 @@ SWEEP_CODE = """\
 import sys, time
 from repro_torch.launch import dryrun
 t0 = time.perf_counter()
-rec = dryrun.run_cell(sys.argv[1], sys.argv[2], False)
+rec = dryrun.run_cell(sys.argv[1], sys.argv[2], False, sys.argv[3])
 print(dryrun.fmt(rec), f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 """
 EXAMPLES_PATH = "examples"
+# phase 20: the benchmark twins; the twins whose spans run on the kernel
+BENCH_PATH = "benchmarks"
+BENCH_ON_KERNEL = ("occam_span_engine", "occam_stap", "occam_serve",
+                   "occam_async", "occam_calibrate", "occam_quant", "smoke")
 
 
 def he_params(net, rng):
@@ -3430,11 +3456,12 @@ def dryrun_phase(torch, seed, compare, dev) -> list:
     return [flash_rec]
 
 
-def sweep_phase() -> None:
+def sweep_phase() -> list:
     """Phase 18's sweep, after the timed phases: ``run_cell`` for every
     applicable shape of ``DRYRUN_SWEEP_ARCHS`` on the single-pod mesh of
     ``meta`` positions, each cell in a CPU process of its own, all started
-    together; every cell must build."""
+    together; every cell must build. Its records go to
+    ``results/torch_dryrun``; returns the (arch, shape) cells."""
     from repro_torch.configs import applicable_shapes, get_config
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -3446,7 +3473,8 @@ def sweep_phase() -> None:
     try:
         for cell in cells:
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", SWEEP_CODE, *cell],
+                [sys.executable, "-c", SWEEP_CODE, *cell,
+                 str(ROOT / "results" / "torch_dryrun")],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 env=env, cwd=ROOT))
         for (arch, shape), proc in zip(cells, procs):
@@ -3464,6 +3492,7 @@ def sweep_phase() -> None:
           f"meta positions: {len(cells)} cells built in "
           f"{time.perf_counter() - t0:.1f} s (host clock; one process a "
           f"cell, on {os.cpu_count()} CPU cores)")
+    return cells
 
 
 def examples_phase(torch, compare, time_span) -> list:
@@ -3579,6 +3608,208 @@ def examples_phase(torch, compare, time_span) -> list:
                "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
                "library_ms": None}
     return [span_rec, flash_rec, ssd_rec]
+
+
+def benchmarks_phase(torch, compare, time_span, dev) -> dict:
+    """Phase 20, path ``benchmarks``: the harness and the smoke pass on
+    the card, every document's checks, the fused span's launches per
+    twin; then ``vgg_mini``'s spans held against plain and timed. Returns
+    the path's fused-span record."""
+    from repro_torch.benchmarks import common, run, smoke, tables
+    from repro_torch.benchmarks import occam_calibrate, occam_quant
+    from repro_torch.core.partition import partition_cnn
+    from repro_torch.kernels.fused_span import kernel
+    from repro_torch.kernels.fused_span.ops import (crossing_source_keys,
+                                                    span_plain_call)
+    from repro_torch.models import cnn
+    from repro_torch.runtime import span_engine
+
+    t_phase = time.perf_counter()
+    launched = {}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            before = kernel.launches
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            launched[name] = kernel.launches - before
+            return out
+        return call
+
+    originals = run.BENCHES
+    run.BENCHES = [(name, counted(name, fn), note, on_device)
+                   for name, fn, note, on_device in originals]
+    kernel.launches = 0
+    try:
+        derived = run.main(["--device", str(dev)])
+        before = kernel.launches
+        smoke.main(["--device", str(dev)])
+        torch.cuda.synchronize()
+        launched["smoke"] = kernel.launches - before
+    finally:
+        run.BENCHES = originals
+    total = kernel.launches
+    print(f"{BENCH_PATH}: fused-span launches per twin {launched}; "
+          f"{total} in all")
+    for name in BENCH_ON_KERNEL:
+        if not launched.get(name):
+            raise AssertionError(f"{BENCH_PATH} {name}: its spans route to "
+                                 f"the kernel and it launched none")
+
+    docs = {name: json.loads((common.RESULTS / f"BENCH_torch_{name}.json")
+                             .read_text())
+            for name in ("span_engine", "stap", "serve", "async", "quant",
+                         "calibrate", "autoplan")}
+    for name, doc in docs.items():
+        if doc.get("device") == "cpu":
+            raise AssertionError(f"{BENCH_PATH} {name}: ran on the CPU")
+
+    def within(name, err, scale):
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"{BENCH_PATH} {name}: max|err| {err:.3e} "
+                                 f"> 1e-3 x max|oracle| {scale:.3e}")
+        return f"{err:.3e}"
+
+    se, res_row = docs["span_engine"]["vgg_mini"], \
+        docs["span_engine"]["res_mini"]
+    if se["spans_on_cuda_kernel"] != se["spans_total"] or \
+            res_row["spans_on_cuda_kernel"] != res_row["spans_total"]:
+        raise AssertionError(f"{BENCH_PATH}: span-engine routes {se}")
+    errs = [within(f"span engine {k}", se[k], se["max_abs_oracle"])
+            for k in ("max_abs_err_interpreted", "max_abs_err_compiled",
+                      "max_abs_err_cuda_kernel")]
+    within("span engine res_mini kernel", res_row["max_abs_err_cuda_kernel"],
+           se["max_abs_oracle"])
+    print(f"{BENCH_PATH} occam_span_engine vgg_mini 32x32 (us/image, host "
+          f"clock after synchronize): oracle {se['us_oracle_jit']}, "
+          f"interpreted {se['us_interpreted']}, compiled (scan) "
+          f"{se['us_compiled']}, occam_forward_jit {se['us_whole_net_jit']},"
+          f" kernel route {se['us_cuda_kernel']}; derived compiled over "
+          f"interpreted {se['speedup_compiled_vs_interpreted']} "
+          f"(floor_10x_met {se['floor_10x_met']}), kernel over "
+          f"interpreted {se['speedup_cuda_kernel_vs_interpreted']}; "
+          f"max|err| vs oracle {errs}; res_mini kernel "
+          f"{res_row['us_cuda_kernel']} us; out_rows sweep "
+          f"{[(e['out_rows'], e['us_scan'], e['us_cuda_kernel']) for e in docs['span_engine']['out_rows_sweep']]}")
+
+    st = docs["stap"]
+    errs = [within(f"stap {k}", st[k], st["max_abs_oracle"])
+            for k in ("max_abs_err_pipeline", "max_abs_err_stap",
+                      "max_abs_err_single_device")]
+    if st["stage_engines"] != ["pallas"] * len(st["stage_engines"]):
+        raise AssertionError(f"{BENCH_PATH} stap engines "
+                             f"{st['stage_engines']}")
+    print(f"{BENCH_PATH} occam_stap vgg_stap 64x64, {st['batch']} images: "
+          f"cuts {st['boundaries']}, replicas {st['replicas_stap']}; "
+          f"us/image single device {st['us_per_image_single_device']}, "
+          f"pipeline {st['us_per_image_pipeline']}, STAP "
+          f"{st['us_per_image_stap']}; measured over predicted pipeline "
+          f"{st['pipeline_thr_measured_over_predicted']}, STAP "
+          f"{st['stap_thr_measured_over_predicted']} (attempts "
+          f"{st['attempt_max_deviations']}); host_parallel_scaling "
+          f"{st['host_parallel_scaling']}; stage ms solo "
+          f"{st['stage_times_solo_ms']}, deployed "
+          f"{st['stage_times_deployed_ms']}, kernel over scan "
+          f"{st['stage_body_cuda_kernel_over_scan']}; max|err| vs oracle "
+          f"{errs}")
+
+    sv, asy = docs["serve"], docs["async"]
+    counts = [sv["session_compile_count"], asy["engine_compile_count"],
+              *(p["engine_compile_count"] for p in asy["poisson"]),
+              docs["calibrate"]["session_compile_count"]]
+    if counts != [1] * len(counts):
+        raise AssertionError(f"{BENCH_PATH}: build counts {counts}")
+    if not (sv["matches_prediction"] and asy["matches_prediction"]):
+        raise AssertionError(f"{BENCH_PATH}: serving traffic does not "
+                             f"match the prediction")
+    print(f"{BENCH_PATH} occam_serve: {sv['images_per_s_measured']} "
+          f"images/s against {sv['images_per_s_predicted_deployed']} "
+          f"predicted, measured over predicted "
+          f"{sv['serve_thr_measured_over_predicted']} (windows "
+          f"{sv['window_ratios']}, predicted over measured), round_batch "
+          f"{sv['round_batch']}, 1 build, matches_prediction True")
+    print(f"{BENCH_PATH} occam_async: {asy['images_per_s_measured']} "
+          f"images/s against {asy['images_per_s_predicted_deployed']} "
+          f"predicted, measured over predicted "
+          f"{asy['async_thr_measured_over_predicted']} (windows "
+          f"{asy['window_ratios']}), packs overlapped "
+          f"{asy['packs_overlapped']}; Poisson "
+          f"{[(p['rate_frac'], p['achieved_images_per_s'], p['latency_p50_ms'], p['latency_p99_ms']) for p in asy['poisson']]}"
+          f" (fraction, images/s, p50 ms, p99 ms)")
+
+    qt, cal = docs["quant"], docs["calibrate"]
+    occam_quant.validate_doc(qt)
+    occam_calibrate.validate_doc(cal)
+    if qt["execution"]["payload_bytes_per_elem"] != 1.0:
+        raise AssertionError(f"{BENCH_PATH} quant payload "
+                             f"{qt['execution']['payload_bytes_per_elem']} "
+                             f"bytes an element")
+    ex = qt["execution"]
+    print(f"{BENCH_PATH} occam_quant: bytes_reduction_int8 "
+          f"{qt['bytes_reduction_int8']}, matches_prediction_bytes True, "
+          f"link bytes {ex['link_bytes_per_image_fp32']} -> "
+          f"{ex['link_bytes_per_image_int8']} an image, max|int8 - fp32| "
+          f"{ex['max_abs_err_int8']:.4f} (tolerance {ex['tolerance']})")
+    print(f"{BENCH_PATH} occam_calibrate: replicas {cal['replicas']} "
+          f"({cal['packing']}), measured {cal['measured_period_us']} us an "
+          f"image, analytic {cal['analytic_period_us']}, calibrated "
+          f"{cal['calibrated_period_us']} (calibrated over measured "
+          f"{cal['calibrated_over_measured']}); miss analytic "
+          f"{cal['analytic_miss_factor']}, calibrated "
+          f"{cal['calibrated_miss_factor']}; error_improvement "
+          f"{cal['error_improvement']}, winner_changed "
+          f"{cal['winner_changed']}")
+    ap = docs["autoplan"]
+    if not ap["all_match_exhaustive"]:
+        raise AssertionError(f"{BENCH_PATH}: autoplan diverged")
+    print(f"{BENCH_PATH} derived: {derived}")
+
+    # vgg_mini's spans at batch 1: kernel vs plain, timed as in phase 4
+    net = tables._vgg_mini(32)
+    res = partition_cnn(net, 24 * 1024)
+    params = cnn.init_params(common.generator(0), net, device=dev)
+    x = common.images((1, 32, 32, 3), 1, dev)
+    maps = cnn.reference_forward(params, x, net, collect=True)
+    rec = new_record()
+    rec["launches"] = total
+    for route in span_engine.plan_routes(net, res):
+        a, b = route.start, route.end
+        spill = span_engine.span_spills(net, res.boundaries, a, b)
+        kw = dict(srcs={s: maps[s] for s in crossing_source_keys(net, a, b)},
+                  spill=spill)
+        got, _ = kernel.span_cuda_call(maps[a], params[a:b], net, a, b, **kw)
+        want, _ = span_plain_call(maps[a], params[a:b], net, a, b, **kw)
+        err, _ = compare(f"{BENCH_PATH} vgg_mini span ({a}, {b})", got,
+                         want, 1e-4, 1e-4)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        time_span(BENCH_PATH, net, params, maps[a], a, b, kw, rec)
+    print(f"phase 20 ({BENCH_PATH}): {time.perf_counter() - t_phase:.1f} s "
+          f"(host clock)")
+    return rec
+
+
+def roofline_phase(cells) -> None:
+    """Phase 20's roofline twin, after the sweep: the records the sweep
+    wrote, each cell's compute term and model FLOPs, the missing terms
+    ``None`` with their reasons."""
+    from repro_torch.benchmarks import roofline
+
+    rows = [r for r in roofline.load_rows(mesh="16x16")
+            if (r["arch"], r["shape"]) in cells]
+    if len(rows) != len(cells):
+        raise AssertionError(f"{BENCH_PATH} roofline: rows for "
+                             f"{[(r['arch'], r['shape']) for r in rows]}, "
+                             f"cells {cells}")
+    for r in rows:
+        if not (r["t_compute_s"] > 0 and r["model_flops_per_dev"] > 0) or \
+                any(r[k] is not None or not r["reasons"][k]
+                    for k in ("t_memory_s", "t_collective_s", "dominant",
+                              "roofline_fraction")):
+            raise AssertionError(f"{BENCH_PATH} roofline row {r}")
+    print(f"{BENCH_PATH} roofline over the sweep's records (16x16, "
+          f"{len(rows)} cells; memory and collective terms None: "
+          f"{rows[0]['reasons']['roofline_fraction']}):")
+    print(roofline.fmt_table(rows))
 
 
 def main() -> int:
@@ -3927,7 +4158,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     span_rec, *example_recs = examples_phase(torch, compare, time_span)
     paths[EXAMPLES_PATH] = span_rec
-    sweep_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths[BENCH_PATH] = benchmarks_phase(torch, compare, time_span, dev)
+    cells = sweep_phase()
+    roofline_phase(cells)
 
     # fused-span times: one batch-8 run of ResNet-18's five spans, one
     # batch-4 run of AlexNet's span, one batch-8 run of each policy plan's
@@ -3938,8 +4173,10 @@ def main() -> int:
     # each timed over the run's 16 microbatches of 2 (its 80 launches);
     # the async engine's: one round's spans at batch 8, and the ring
     # engine's: one slot's spans at microbatch 2, each span one call;
-    # launches: each path's counted run. Flash on the pipeline path: one
-    # run's 128 calls timed, launches of both runs (128 each)
+    # launches: each path's counted run; the benchmarks path's: vgg_mini's
+    # three spans at batch 1 beside every launch of the harness and the
+    # smoke pass. Flash on the pipeline path: one run's 128 calls timed,
+    # launches of both runs (128 each)
     print(json.dumps({"kernels": [{
         "name": "fused_span",
         "path": name,

@@ -2,7 +2,9 @@
 
 A subprocess imports ``repro_torch`` and every module under it and checks
 ``sys.modules``; an AST scan checks every port file and ``chip_smoke.py``
-for ``import jax`` and for imports of ``repro`` / ``repro.*``.
+for ``import jax`` and for imports of ``repro`` / ``repro.*`` and of the
+repository's ``benchmarks`` (the port's benchmark twins keep their own
+copies).
 """
 import ast
 import os
@@ -52,7 +54,19 @@ def test_port_imports_without_jax_or_repro():
                 "repro_torch.examples.occam_cnn_pipeline",
                 "repro_torch.examples.serve_pipeline",
                 "repro_torch.examples.async_serve",
-                "repro_torch.examples.train_tiny_lm"):
+                "repro_torch.examples.train_tiny_lm",
+                "repro_torch.benchmarks", "repro_torch.benchmarks.common",
+                "repro_torch.benchmarks.audit_stamp",
+                "repro_torch.benchmarks.tables",
+                "repro_torch.benchmarks.occam_stap",
+                "repro_torch.benchmarks.occam_serve",
+                "repro_torch.benchmarks.occam_async",
+                "repro_torch.benchmarks.occam_autoplan",
+                "repro_torch.benchmarks.occam_quant",
+                "repro_torch.benchmarks.occam_calibrate",
+                "repro_torch.benchmarks.run",
+                "repro_torch.benchmarks.smoke",
+                "repro_torch.benchmarks.roofline"):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -60,7 +74,8 @@ def test_port_imports_without_jax_or_repro():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
-        "             or m.startswith('repro.'))\n"
+        "             or m.startswith('repro.') or m == 'benchmarks'\n"
+        "             or m.startswith('benchmarks.'))\n"
         "print(len(bad), bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -113,4 +128,4 @@ def _imported_roots(path: Path) -> set[str]:
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     roots = _imported_roots(path)
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, roots
