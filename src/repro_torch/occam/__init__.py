@@ -23,6 +23,9 @@ planner derive capacity and placement, then re-rank on measurements::
                                                   # metrics, damped
                                                   # autoscaling (occam.serve)
     occam.audit(frontier).ok                      # static verification
+    with torch.profiler.profile():                # the serving path's
+        y = await (await engine.submit(xs))       # spans, kept while a
+    occam.trace.records()                         # profiler records
 
 ``plan``/``place`` remain the low-level surface when you already know the
 capacity you want::
@@ -48,7 +51,7 @@ engine registers the kernel (route name ``pallas``), ``scan``,
 ``oracle`` and ``interpreted`` engines at import, each but
 ``interpreted`` with a pipeline stage body.
 """
-from . import quant, registry, serve
+from . import quant, registry, serve, trace
 from .deploy import Deployment, ServingStats, Session, Ticket
 from .fleet import Fleet, load_fleet
 from .place import PIPELINE, SINGLE, Placement
@@ -93,5 +96,5 @@ __all__ = [
     "plan_from_dict", "plan_from_json", "quant", "register_engine",
     "registered_engines", "registry", "rescore_frontier",
     "resolve_policies", "resolve_policy",
-    "resolve_spmd_engine", "serve", "unregister_engine",
+    "resolve_spmd_engine", "serve", "trace", "unregister_engine",
 ]

@@ -36,7 +36,10 @@ class TickTimers:
     ``record(seconds)`` stamps one completed tick; events older than
     ``horizon_s`` roll off. ``busy_fraction()`` is the fraction of the
     observed window spent inside timed ticks — the duty cycle the
-    utilization stats scale per-stage shares by."""
+    utilization stats scale per-stage shares by. A tick is timed on the
+    host: on the GPU its call returns once the round is issued (a CUDA
+    graph replay enqueued), so the time is the host's issue of the
+    round, not the device's time computing it."""
 
     horizon_s: float = 60.0
     clock: Callable[[], float] = time.monotonic

@@ -59,7 +59,7 @@ from repro_torch.kernels.fused_span import kernel as span_kernel
 from repro_torch.models import cnn
 from repro_torch.runtime import span_engine
 
-from . import registry
+from . import registry, trace
 from .calibrate.timers import TickTimers
 from .place import PIPELINE, SINGLE, Placement
 from .quant import casting
@@ -654,33 +654,37 @@ class Session:
         """
         if self._closed:
             raise RuntimeError("session is closed")
-        had_partial = self._queued > 0
-        xs = convert.array_from_numpy(images, self.deployment.device)
-        if xs.ndim == 3:
-            xs = xs[None]
-        want = self.deployment.plan.net.map_shape(0)
-        if xs.ndim != 4 or xs.shape[0] < 1 or tuple(xs.shape[1:]) != want:
-            raise ValueError(f"submit takes (B >= 1,) + {want} images, got "
-                             f"{tuple(xs.shape)}")
-        if xs.dtype != self._dtype:
-            raise ValueError(f"submit takes {self._dtype} images (the "
-                             f"params' dtype), got {xs.dtype}")
-        ticket = Ticket(self._next_uid, int(xs.shape[0]))
-        self._next_uid += 1
-        self._tickets[ticket.uid] = _TicketState(ticket)
-        self._queue.append([ticket.uid, xs, 0])
-        self._queued += ticket.images
-        while self._queued >= self.round_batch:
-            # backpressure BEFORE popping the round: a refused submit
-            # leaves the queue intact, so results() still serves it
-            self._check_pending()
-            self._tick(*self._take_round())
-        # age only a PRE-EXISTING partial: the submit that starts (or
-        # extends) a fresh remainder must give later traffic at least
-        # one tick to fill it, or max_wait_ticks=1 would degenerate to
-        # flush-per-submit with no cross-submit batching ever
-        if had_partial:
-            self._age_partial()
+        with trace.span("occam.session.submit") as sp:
+            had_partial = self._queued > 0
+            xs = convert.array_from_numpy(images, self.deployment.device)
+            if xs.ndim == 3:
+                xs = xs[None]
+            want = self.deployment.plan.net.map_shape(0)
+            if xs.ndim != 4 or xs.shape[0] < 1 or \
+                    tuple(xs.shape[1:]) != want:
+                raise ValueError(f"submit takes (B >= 1,) + {want} images, "
+                                 f"got {tuple(xs.shape)}")
+            if xs.dtype != self._dtype:
+                raise ValueError(f"submit takes {self._dtype} images (the "
+                                 f"params' dtype), got {xs.dtype}")
+            ticket = Ticket(self._next_uid, int(xs.shape[0]))
+            if sp:
+                sp.set(ticket=ticket.uid, images=ticket.images)
+            self._next_uid += 1
+            self._tickets[ticket.uid] = _TicketState(ticket)
+            self._queue.append([ticket.uid, xs, 0])
+            self._queued += ticket.images
+            while self._queued >= self.round_batch:
+                # backpressure BEFORE popping the round: a refused submit
+                # leaves the queue intact, so results() still serves it
+                self._check_pending()
+                self._tick(*self._take_round())
+            # age only a PRE-EXISTING partial: the submit that starts (or
+            # extends) a fresh remainder must give later traffic at least
+            # one tick to fill it, or max_wait_ticks=1 would degenerate to
+            # flush-per-submit with no cross-submit batching ever
+            if had_partial:
+                self._age_partial()
         return ticket
 
     def ready(self) -> tuple[Ticket, ...]:
@@ -925,7 +929,12 @@ class Session:
             self._images += n_valid
             self._rounds_served += 1
         if self._ring is None:
-            with self.timers.time():
+            # the copy in, the padding, the replay and the clone; the tick
+            # timer takes the span's own duration
+            with trace.timed("occam.session.round", self.timers) as sp:
+                if sp:
+                    sp.set(round=self._rounds_served, lanes=n_valid,
+                           tickets=tuple(uid for uid, _take in segs))
                 lanes = self._step(self.params, xs)
             self._deliver(segs, lanes)
             return

@@ -47,7 +47,11 @@ This is the reference package's engine with three methods of its own:
 front door (a dtype the session refuses would otherwise raise inside
 the serving loop and leave every ticket pending), ``_stage`` packs with
 ``torch`` and copies to the deployment's device, and ``_deliver`` joins
-a request's lanes with ``torch.cat``.
+a request's lanes with ``torch.cat``. Besides, it marks its host work
+with :mod:`repro_torch.occam.trace` spans (submit, the loop's sleep,
+stage, dispatch with the round's cause and the rounds still on the
+device, deliver) and keeps one record a request, all only while
+``torch.profiler`` records.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ import torch
 
 from repro_torch import convert
 
+from .. import trace
 from ..deploy import Deployment
 from .metrics import MetricsRing
 from .queue import AdmissionError, AdmissionQueue, Request
@@ -167,7 +172,10 @@ class AsyncEngine:
                                    windows=metrics_windows, clock=clock)
         # session-ticket uid -> [(request, take), ...] per dispatched round
         self._rounds: dict[int, list] = {}
-        self._staged: tuple | None = None   # (xs_on_device, segs, n_valid)
+        # (xs_on_device, segs, n_valid, cause)
+        self._staged: tuple | None = None
+        # rounds still on the device, counted while torch.profiler records
+        self._backlog = trace.DeviceBacklog()
         self._task: asyncio.Task | None = None
         self._wake: asyncio.Event = asyncio.Event()
         self._stopping = False
@@ -228,26 +236,36 @@ class AsyncEngine:
         other tenants' budgets are untouched.
         """
         await self.start()
-        # numpy (or anything numpy reads) lands on the host; a tensor
-        # stays where it is until its round is staged
-        xs = images if isinstance(images, torch.Tensor) \
-            else convert.array_from_numpy(images)
-        if xs.ndim == 3:
-            xs = xs[None]
-        shape = self._dep.plan.net.map_shape(0)
-        if xs.ndim != 4 or xs.shape[0] < 1 or tuple(xs.shape[1:]) != shape:
-            raise ValueError(f"submit takes (B >= 1,) + {shape} images, "
-                             f"got {tuple(xs.shape)}")
-        # the session's own check, here at the front door: raised inside
-        # the serving loop it would stop the loop with tickets pending
-        dtype = self._session._dtype
-        if xs.dtype != dtype:
-            raise ValueError(f"submit takes {dtype} images (the params' "
-                             f"dtype), got {xs.dtype}")
-        fut = asyncio.get_running_loop().create_future()
-        req = self.queue.offer(tenant, xs, int(xs.shape[0]), fut)
-        self.metrics.observe_arrival(req.n, self.queue.depth)
-        self._wake.set()
+        with trace.span("occam.engine.submit") as sp:
+            # numpy (or anything numpy reads) lands on the host; a tensor
+            # stays where it is until its round is staged
+            xs = images if isinstance(images, torch.Tensor) \
+                else convert.array_from_numpy(images)
+            if xs.ndim == 3:
+                xs = xs[None]
+            shape = self._dep.plan.net.map_shape(0)
+            if xs.ndim != 4 or xs.shape[0] < 1 or \
+                    tuple(xs.shape[1:]) != shape:
+                raise ValueError(f"submit takes (B >= 1,) + {shape} "
+                                 f"images, got {tuple(xs.shape)}")
+            # the session's own check, here at the front door: raised
+            # inside the serving loop it would stop the loop with tickets
+            # pending
+            dtype = self._session._dtype
+            if xs.dtype != dtype:
+                raise ValueError(f"submit takes {dtype} images (the "
+                                 f"params' dtype), got {xs.dtype}")
+            fut = asyncio.get_running_loop().create_future()
+            if sp:
+                sp.set(tenant=tenant, images=int(xs.shape[0]),
+                       queue_depth=self.queue.depth, admitted=False)
+            req = self.queue.offer(tenant, xs, int(xs.shape[0]), fut)
+            self.metrics.observe_arrival(req.n, self.queue.depth)
+            if sp:
+                req.admitted_ns = trace.now_ns()
+                sp.set(request=req.uid, queue_depth=self.queue.depth,
+                       admitted=True)
+            self._wake.set()
         return AsyncTicket(req, self)
 
     def _cancel(self, req: Request) -> bool:
@@ -261,6 +279,8 @@ class AsyncEngine:
         req.cancelled = True
         self.queue.cancel(req)
         req.future.cancel()
+        if trace.enabled():
+            trace.record_request(req, trace.now_ns(), cancelled=True)
         self._wake.set()
         return True
 
@@ -287,18 +307,23 @@ class AsyncEngine:
         """The session's queue-side counters plus a live per-stage
         ``utilization`` view.
 
-        ``utilization[i]`` is the fraction of wall clock stage ``i``'s
-        chips spent computing over the tick timer's rolling window: the
-        ring's tick duty cycle scaled by the stage's share of the
-        bottleneck (a stage whose per-replica time is half the
-        bottleneck's idles half of every tick — exactly what
-        sum-of-replicas planning trades against). Single-chip
-        deployments report the one chip's duty cycle."""
+        ``utilization[i]`` is the tick timer's duty cycle over its
+        rolling window (the share of wall clock the host spent inside
+        tick calls) scaled by stage ``i``'s share of the bottleneck (a
+        stage whose per-replica time is half the bottleneck's idles half
+        of every tick — exactly what sum-of-replicas planning trades
+        against). Single-chip deployments report the one duty cycle. On
+        the GPU a tick call returns once its round is issued (a graph
+        replay is enqueued), so this is the host's issue of the rounds,
+        not device time: the device's busy time is in a
+        ``torch.profiler`` trace, beside the ``occam.trace`` spans."""
         stats = dataclasses.asdict(self._session.serving_stats())
         stats["utilization"] = self._utilization()
         return stats
 
     def _utilization(self) -> tuple[float, ...]:
+        """Per-stage shares of the tick timer's duty cycle (host time in
+        tick calls; see :meth:`serving_stats`)."""
         session = self._session
         duty = session.timers.busy_fraction()
         if session._ring is None:
@@ -444,11 +469,17 @@ class AsyncEngine:
                 # executing asynchronously on the device
                 await asyncio.sleep(0)
                 continue
-            try:
-                await asyncio.wait_for(self._wake.wait(),
-                                       self._sleep_s(now))
-            except asyncio.TimeoutError:
-                pass
+            # asleep toward a queued partial's deadline, or with nothing
+            # queued: two names, so the device's idle gaps tell them apart
+            with trace.span("occam.engine.wait.held" if self.queue.depth
+                            else "occam.engine.wait.empty") as sp:
+                if sp:
+                    sp.set(queued=self.queue.depth)
+                try:
+                    await asyncio.wait_for(self._wake.wait(),
+                                           self._sleep_s(now))
+                except asyncio.TimeoutError:
+                    pass
             self._wake.clear()
 
     @property
@@ -482,19 +513,21 @@ class AsyncEngine:
         progressed = self._deliver()
         rb = self._session.round_batch
         if self._staged is None and self.queue.depth >= rb:
-            self._staged = self._stage(rb)
+            self._staged = self._stage(rb, "full")
         if self._staged is not None:
             self._dispatch(*self._staged)
             self._staged = None
             progressed = True
             if self.queue.depth >= rb:
                 # double-buffer: pack round t+1 while tick t runs
-                self._staged = self._stage(rb)
+                self._staged = self._stage(rb, "lookahead")
                 self.packs_overlapped += 1
         elif self.queue.depth and self._aged(now):
             # SLO flush: a masked partial round, straight through the
             # ring — steady state continues, no drain
-            self._dispatch(*self._stage(min(self.queue.depth, rb)))
+            self._dispatch(*self._stage(
+                min(self.queue.depth, rb),
+                "drain" if self._flushing else "deadline"))
             progressed = True
         elif self._rounds:
             # idle traffic, resident rounds: advance the ring one tick
@@ -504,37 +537,63 @@ class AsyncEngine:
         self.metrics.observe_queue_depth(self.queue.depth)
         return progressed
 
-    def _stage(self, n: int) -> tuple:
+    def _stage(self, n: int, cause: str) -> tuple:
         """Pack up to ``n`` queued images into one round buffer on the
         deployment's device (a pipeline's: its first position) — the
         lookahead buffer: the host gather and the copy to the device
         overlap the in-flight tick. Host lanes are packed into pinned
         memory and copied ``non_blocking`` on the current stream, which
-        orders the copy before the round's tick."""
-        taken = self.queue.take(n)
-        parts = [lanes for _req, lanes, _take in taken]
-        device = self._dep.device
-        if device.type == "cuda" and all(p.device.type == "cpu"
-                                          for p in parts):
-            xs = torch.empty((sum(p.shape[0] for p in parts),)
-                             + tuple(parts[0].shape[1:]),
-                             dtype=parts[0].dtype, pin_memory=True)
-            torch.cat(parts, out=xs)
-            xs = xs.to(device, non_blocking=True)
-        else:
-            parts = [p.to(device) for p in parts]
-            xs = parts[0] if len(parts) == 1 else torch.cat(parts)
-        segs = [(req, take) for req, _lanes, take in taken]
-        return xs, segs, sum(take for _req, take in segs)
+        orders the copy before the round's tick. ``cause`` (``full``,
+        ``lookahead``, ``deadline`` or ``drain``) rides with the round to
+        :meth:`_dispatch`."""
+        with trace.span("occam.engine.stage") as sp:
+            taken = self.queue.take(n)
+            parts = [lanes for _req, lanes, _take in taken]
+            device = self._dep.device
+            if sp:
+                sp.set(bytes=sum(p.nbytes for p in parts
+                                 if p.device.type == "cpu")
+                       if device.type == "cuda" else 0)
+            if device.type == "cuda" and all(p.device.type == "cpu"
+                                              for p in parts):
+                xs = torch.empty((sum(p.shape[0] for p in parts),)
+                                 + tuple(parts[0].shape[1:]),
+                                 dtype=parts[0].dtype, pin_memory=True)
+                torch.cat(parts, out=xs)
+                xs = xs.to(device, non_blocking=True)
+            else:
+                parts = [p.to(device) for p in parts]
+                xs = parts[0] if len(parts) == 1 else torch.cat(parts)
+            segs = [(req, take) for req, _lanes, take in taken]
+            n_valid = sum(take for _req, take in segs)
+            if sp:
+                # a request's last stage is the one that packs its last
+                # image
+                t = trace.now_ns()
+                for req, _take in segs:
+                    req.staged_ns = t
+                sp.set(images=n_valid,
+                       requests=tuple(req.uid for req, _take in segs))
+        return xs, segs, n_valid, cause
 
-    def _dispatch(self, xs, segs, n_valid: int) -> None:
+    def _dispatch(self, xs, segs, n_valid: int, cause: str) -> None:
         """One device tick: a full round ticks inside ``submit``; a
-        partial is pumped through as a masked round."""
-        ticket = self._session.submit(xs)
-        if n_valid < self._session.round_batch:
-            self._session.pump(allow_partial=True)
-        self._rounds[ticket.uid] = segs
-        self.metrics.observe_round(n_valid, self._session.round_batch)
+        partial is pumped through as a masked round. While
+        torch.profiler records, the span counts the rounds this engine
+        sent earlier that the device has not finished (never waiting)."""
+        with trace.span("occam.engine.dispatch") as sp:
+            backlog = self._backlog.pending() if sp else 0
+            ticket = self._session.submit(xs)
+            if n_valid < self._session.round_batch:
+                self._session.pump(allow_partial=True)
+            self._rounds[ticket.uid] = segs
+            self.metrics.observe_round(n_valid, self._session.round_batch)
+            if sp:
+                self._backlog.mark(self._dep.device)
+                sp.set(round=ticket.uid, lanes=n_valid,
+                       round_batch=self._session.round_batch, cause=cause,
+                       device_backlog=backlog,
+                       requests=tuple(req.uid for req, _take in segs))
 
     def _deliver(self) -> bool:
         """Collect every round the ring has finished; resolve tickets
@@ -542,25 +601,36 @@ class AsyncEngine:
         done = self._session.results(flush=False)
         if not done:
             return False
-        now = self._clock()
-        for ticket, lanes in done:
-            off = 0
-            for req, take in self._rounds.pop(ticket.uid):
-                if req.cancelled:
-                    # discard the lanes; the budget share still settles
+        with trace.span("occam.engine.deliver") as sp:
+            # a request record's resolution time is the span's start, no
+            # clock read of its own; the metrics keep the engine's clock
+            now = self._clock()
+            resolved = []
+            for ticket, lanes in done:
+                off = 0
+                for req, take in self._rounds.pop(ticket.uid):
+                    if req.cancelled:
+                        # discard the lanes; the budget share still settles
+                        off += take
+                        req.remaining -= take
+                        self.queue.settle(req, take)
+                        continue
+                    req.delivered.append(lanes[off:off + take])
                     off += take
                     req.remaining -= take
                     self.queue.settle(req, take)
-                    continue
-                req.delivered.append(lanes[off:off + take])
-                off += take
-                req.remaining -= take
-                self.queue.settle(req, take)
-                if req.remaining == 0:
-                    y = req.delivered[0] if len(req.delivered) == 1 \
-                        else torch.cat(req.delivered)
-                    self.metrics.observe_completion(req.n,
-                                                    now - req.arrived)
-                    if not req.future.done():
-                        req.future.set_result(y)
+                    if req.remaining == 0:
+                        y = req.delivered[0] if len(req.delivered) == 1 \
+                            else torch.cat(req.delivered)
+                        self.metrics.observe_completion(req.n,
+                                                        now - req.arrived)
+                        if not req.future.done():
+                            req.future.set_result(y)
+                            if sp:
+                                resolved.append(req.uid)
+                                trace.record_request(req, sp.start_ns,
+                                                     cancelled=False)
+            if sp:
+                sp.set(rounds=tuple(ticket.uid for ticket, _lanes in done),
+                       resolved=tuple(resolved))
         return True

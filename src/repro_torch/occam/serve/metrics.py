@@ -48,7 +48,6 @@ class Window:
     valid_lanes: int = 0                 # occupied lanes across those rounds
     round_lanes: int = 0                 # total lanes across those rounds
     queue_depth_last: int = 0            # gauge at last observation
-    latencies: list = dataclasses.field(default_factory=list)
 
     @property
     def arrival_rate(self) -> float:
@@ -106,7 +105,6 @@ class MetricsRing:
     def observe_completion(self, images: int, latency_s: float) -> None:
         self._open.completions += images
         self.total_completions += images
-        self._open.latencies.append(latency_s)
         self._latencies.append(latency_s)
 
     def observe_queue_depth(self, depth: int) -> None:

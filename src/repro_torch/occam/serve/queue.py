@@ -57,6 +57,10 @@ class Request:
     delivered: list = dataclasses.field(default_factory=list)
     remaining: int = 0
     cancelled: bool = False
+    # time.time_ns() at admission and at the last pack of its images,
+    # noted while torch.profiler records (occam.trace)
+    admitted_ns: int | None = None
+    staged_ns: int | None = None
 
     def __post_init__(self) -> None:
         self.remaining = self.n

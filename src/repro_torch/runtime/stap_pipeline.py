@@ -72,7 +72,7 @@ from repro_torch.core.stap import (StaggeredSchedule, StapPlan,
                                    plan_replication, staggered_schedule,
                                    steady_schedule)
 from repro_torch.models import cnn
-from repro_torch.occam import registry
+from repro_torch.occam import registry, trace
 from repro_torch.runtime import span_engine
 
 STAGE_AXIS = "stage"
@@ -1163,7 +1163,10 @@ class StapRing(_SpanProgram):
         w, c) is the round leaving the last stage (the one submitted
         ``ring_depth - 1`` ticks ago).
         """
-        with self.timers.time():
+        with trace.timed("occam.session.round", self.timers) as sp:
+            if sp:
+                sp.set(round=self.timers.count,
+                       valid_slots=int(np.count_nonzero(masks[0])))
             if self._tick is None:
                 self._tick = self._build_tick_packed() \
                     if self.packing == "sum" else self._build_tick()

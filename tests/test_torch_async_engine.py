@@ -612,9 +612,10 @@ async def _drive_twin(eng_cls, dep, params, images, as_input):
     rounds = []
     dispatch = eng._dispatch
 
-    def record(xs, segs, n_valid):
+    def record(xs, segs, n_valid, *cause):
+        # the port's engine also passes the round's cause
         rounds.append([(req.tenant, take) for req, take in segs])
-        dispatch(xs, segs, n_valid)
+        dispatch(xs, segs, n_valid, *cause)
 
     eng._dispatch = record
 
@@ -688,3 +689,79 @@ def test_engine_packs_rounds_as_reference(kind, out_rows):
         assert_close(y, _ref(params, net, images[k:k + y.shape[0]]))
         k += y.shape[0]
     assert k == n
+
+
+# --------------------------------------------------------------------------
+# Spans (occam.trace) while torch.profiler records
+# --------------------------------------------------------------------------
+
+def test_engine_spans_name_each_round_cause(engine_case):
+    """Under ``torch.profiler``: a lone sub-round request leaves at the
+    ``max_wait_ms`` deadline, one submit of two rounds sends a full round
+    and one packed ahead while it ran, and a partial left at ``drain``
+    leaves as ``drain``. Each request's record has admitted <= staged <=
+    resolved, and its id is one its stage, dispatch and deliver spans
+    list; every span is a profiler range of its interval."""
+    from test_torch_trace import assert_records_match_ranges
+
+    from repro_torch.occam import trace
+
+    net, params, _frontier, dep = engine_case
+    trace.clear()
+
+    async def drive():
+        eng = occam.AsyncEngine(dep, params, max_wait_ms=1.0)
+        async with eng:
+            rb = eng.round_batch
+            await (await eng.submit(_images(net, 1, 5)))
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                with trace.span("occam.warm"):
+                    pass
+                await (await eng.submit(_images(net, 1, 6), tenant="lone"))
+                await (await eng.submit(_images(net, 2 * rb, 7),
+                                        tenant="two"))
+                last = await eng.submit(_images(net, 1, 8), tenant="last")
+                await eng.drain()
+                await last
+        return prof, rb
+
+    prof, rb = run(drive())
+    recs = trace.records()
+    trace.clear()
+
+    def named(name):
+        return [r for r in recs if r.name == name]
+
+    dispatch = named("occam.engine.dispatch")
+    assert [(r.attrs["cause"], r.attrs["lanes"]) for r in dispatch] == [
+        ("deadline", 1), ("full", rb), ("lookahead", rb), ("drain", 1)]
+    assert all(r.attrs["device_backlog"] == 0 for r in dispatch)
+    assert any(r.attrs["queued"] == 1 for r in named("occam.engine.wait.held"))
+    reqs = named("occam.engine.request")
+    assert [r.attrs["tenant"] for r in reqs] == ["lone", "two", "last"]
+    stage, deliver = named("occam.engine.stage"), named("occam.engine.deliver")
+    rounds = {}
+    for rec in reqs:
+        a = rec.attrs
+        assert a["admitted_ns"] <= a["staged_ns"] <= a["resolved_ns"]
+        assert not a["cancelled"]
+        assert any(a["request"] in r.attrs["requests"] for r in stage)
+        rounds[a["request"]] = [r.attrs["round"] for r in dispatch
+                                if a["request"] in r.attrs["requests"]]
+        (v,) = [r for r in deliver if a["request"] in r.attrs["resolved"]]
+        assert rounds[a["request"]][-1] in v.attrs["rounds"]
+    assert [len(rounds[r.attrs["request"]]) for r in reqs] == [1, 2, 1]
+    # each round's ring tick runs inside its dispatch (a full round's
+    # inside the session's submit there); drain ticks run under none
+    by_id = {r.id: r for r in recs}
+
+    def dispatch_of(r):
+        while r.parent and r.name != "occam.engine.dispatch":
+            r = by_id[r.parent]
+        return r.id if r.name == "occam.engine.dispatch" else None
+
+    ticks = named("occam.session.round")
+    assert {dispatch_of(r) for r in ticks} - {None} == \
+        {r.id for r in dispatch}
+    assert_records_match_ranges(recs, prof)

@@ -36,7 +36,9 @@ COPIES = [
 # the lines of a copy that must name the port: its own package in a
 # string, the port's source tree in a locus, and torch's device sync
 # beside JAX's among the calls the serve lint (OCM050) flags in an
-# ``async def``
+# ``async def``; and the lines the port's serving copies change: a
+# request's times while torch.profiler records (``occam.trace``), and no
+# per-window latency list, which nothing read
 RENAMED = {
     "configs/__init__.py": [('f"repro.configs.{mod}"',
                              'f"repro_torch.configs.{mod}"')],
@@ -46,6 +48,17 @@ RENAMED = {
         ('idx = p.find("src/repro/")', 'idx = p.find("src/repro_torch/")'),
         ('_BLOCKING_ATTRS = ("block_until_ready", "pump")',
          '_BLOCKING_ATTRS = ("block_until_ready", "synchronize", "pump")')],
+    "occam/serve/queue.py": [
+        ("    cancelled: bool = False\n",
+         "    cancelled: bool = False\n"
+         "    # time.time_ns() at admission and at the last pack of its images,\n"
+         "    # noted while torch.profiler records (occam.trace)\n"
+         "    admitted_ns: int | None = None\n"
+         "    staged_ns: int | None = None\n")],
+    "occam/serve/metrics.py": [
+        ("    latencies: list = dataclasses.field(default_factory=list)\n",
+         ""),
+        ("        self._open.latencies.append(latency_s)\n", "")],
 }
 
 
@@ -93,29 +106,157 @@ def _sources(path: Path) -> dict[str, str]:
     return out
 
 
+# what the port's tick timer adds to the reference's docstring: on the GPU
+# a tick's time is the host's issue of the round
+TIMER_DOC = (
+    "    utilization stats scale per-stage shares by.\"\"\"\n",
+    "    utilization stats scale per-stage shares by. A tick is timed on the\n"
+    "    host: on the GPU its call returns once the round is issued (a CUDA\n"
+    "    graph replay enqueued), so the time is the host's issue of the\n"
+    "    round, not the device's time computing it.\"\"\"\n")
+
+
 @pytest.mark.parametrize("name", ["TickTimers", "_TimerContext",
                                   "StageProfile"])
 def test_timer_classes_match_reference_source(name):
     """The serving tick timer and the stage profile are copies of the
     reference's classes (the rest of that module imports JAX, so the
-    whole-file check cannot apply); besides them the port's module holds
-    only its own stage measurement."""
+    whole-file check cannot apply), the timer's docstring extended by
+    ``TIMER_DOC``; besides them the port's module holds only its own
+    stage measurement."""
     rel = "occam/calibrate/timers.py"
     ref = _sources(SRC / "repro" / rel)
     port = _sources(SRC / "repro_torch" / rel)
     assert {k for k in port if "." not in k} == {
         "StageProfile", "TickTimers", "_TimerContext",
         "measure_stage_seconds", "measure_hop_seconds"}
-    assert port[name] == ref[name]
+    want = ref[name]
+    if name == "TickTimers":
+        assert want.count(TIMER_DOC[0]) == 1
+        want = want.replace(*TIMER_DOC)
+    assert port[name] == want
 
 
 # The planning frontier, the STAP stage plan, the LM stage plan, the
 # sharding context's resolution and the async engine: every definition
 # the port keeps as the reference's text. search.py differs
 # only in Candidate.placement / Candidate.deploy / Frontier.serve (an
-# explicit device); serve/engine.py only where it packs and joins tensors.
+# explicit device); serve/engine.py only where it packs and joins tensors,
+# and, in the methods ENGINE_TRACED names, by the replacements it states.
 ENGINE_OWN = {"AsyncEngine", "AsyncEngine.submit", "AsyncEngine._stage",
               "AsyncEngine._deliver"}
+# The engine's ``occam.trace`` spans and records while torch.profiler
+# records, each round's cause passed from ``_step`` to ``_dispatch``, and
+# the docstrings that say the tick timer times the host's issue of a
+# round on the GPU: each pair is the reference's text, found once, and
+# the port's.
+ENGINE_TRACED = {
+    "AsyncEngine.__init__": [(
+        "        self._staged: tuple | None = None   "
+        "# (xs_on_device, segs, n_valid)\n",
+        "        # (xs_on_device, segs, n_valid, cause)\n"
+        "        self._staged: tuple | None = None\n"
+        "        # rounds still on the device, counted while torch.profiler "
+        "records\n"
+        "        self._backlog = trace.DeviceBacklog()\n")],
+    "AsyncEngine._cancel": [(
+        "        req.future.cancel()\n",
+        "        req.future.cancel()\n"
+        "        if trace.enabled():\n"
+        "            trace.record_request(req, trace.now_ns(), "
+        "cancelled=True)\n")],
+    "AsyncEngine._run": [(
+        "            try:\n"
+        "                await asyncio.wait_for(self._wake.wait(),\n"
+        "                                       self._sleep_s(now))\n"
+        "            except asyncio.TimeoutError:\n"
+        "                pass\n",
+        "            # asleep toward a queued partial's deadline, or with nothing\n"
+        "            # queued: two names, so the device's idle gaps tell them "
+        "apart\n"
+        "            with trace.span(\"occam.engine.wait.held\" if "
+        "self.queue.depth\n"
+        "                            else \"occam.engine.wait.empty\") as sp:\n"
+        "                if sp:\n"
+        "                    sp.set(queued=self.queue.depth)\n"
+        "                try:\n"
+        "                    await asyncio.wait_for(self._wake.wait(),\n"
+        "                                           self._sleep_s(now))\n"
+        "                except asyncio.TimeoutError:\n"
+        "                    pass\n")],
+    "AsyncEngine._step": [
+        ("rb:\n            self._staged = self._stage(rb)\n",
+         "rb:\n            self._staged = self._stage(rb, \"full\")\n"),
+        ("                self._staged = self._stage(rb)\n",
+         "                self._staged = self._stage(rb, \"lookahead\")\n"),
+        ("            self._dispatch(*self._stage(min(self.queue.depth, "
+         "rb)))\n",
+         "            self._dispatch(*self._stage(\n"
+         "                min(self.queue.depth, rb),\n"
+         "                \"drain\" if self._flushing else \"deadline\"))\n")],
+    "AsyncEngine._dispatch": [
+        ("n_valid: int) -> None:\n", "n_valid: int, cause: str) -> None:\n"),
+        ("        partial is pumped through as a masked round.\"\"\"\n"
+         "        ticket = self._session.submit(xs)\n"
+         "        if n_valid < self._session.round_batch:\n"
+         "            self._session.pump(allow_partial=True)\n"
+         "        self._rounds[ticket.uid] = segs\n"
+         "        self.metrics.observe_round(n_valid, "
+         "self._session.round_batch)\n",
+         "        partial is pumped through as a masked round. While\n"
+         "        torch.profiler records, the span counts the rounds this "
+         "engine\n"
+         "        sent earlier that the device has not finished (never "
+         "waiting).\"\"\"\n"
+         "        with trace.span(\"occam.engine.dispatch\") as sp:\n"
+         "            backlog = self._backlog.pending() if sp else 0\n"
+         "            ticket = self._session.submit(xs)\n"
+         "            if n_valid < self._session.round_batch:\n"
+         "                self._session.pump(allow_partial=True)\n"
+         "            self._rounds[ticket.uid] = segs\n"
+         "            self.metrics.observe_round(n_valid, "
+         "self._session.round_batch)\n"
+         "            if sp:\n"
+         "                self._backlog.mark(self._dep.device)\n"
+         "                sp.set(round=ticket.uid, lanes=n_valid,\n"
+         "                       round_batch=self._session.round_batch, "
+         "cause=cause,\n"
+         "                       device_backlog=backlog,\n"
+         "                       requests=tuple(req.uid for req, _take in "
+         "segs))\n")],
+    "AsyncEngine.serving_stats": [(
+        "        ``utilization[i]`` is the fraction of wall clock stage "
+        "``i``'s\n"
+        "        chips spent computing over the tick timer's rolling window: "
+        "the\n"
+        "        ring's tick duty cycle scaled by the stage's share of the\n"
+        "        bottleneck (a stage whose per-replica time is half the\n"
+        "        bottleneck's idles half of every tick — exactly what\n"
+        "        sum-of-replicas planning trades against). Single-chip\n"
+        "        deployments report the one chip's duty cycle.\"\"\"\n",
+        "        ``utilization[i]`` is the tick timer's duty cycle over its\n"
+        "        rolling window (the share of wall clock the host spent inside\n"
+        "        tick calls) scaled by stage ``i``'s share of the bottleneck "
+        "(a\n"
+        "        stage whose per-replica time is half the bottleneck's idles "
+        "half\n"
+        "        of every tick — exactly what sum-of-replicas planning trades\n"
+        "        against). Single-chip deployments report the one duty cycle. "
+        "On\n"
+        "        the GPU a tick call returns once its round is issued (a "
+        "graph\n"
+        "        replay is enqueued), so this is the host's issue of the "
+        "rounds,\n"
+        "        not device time: the device's busy time is in a\n"
+        "        ``torch.profiler`` trace, beside the ``occam.trace`` "
+        "spans.\"\"\"\n")],
+    "AsyncEngine._utilization": [(
+        "tuple[float, ...]:\n",
+        "tuple[float, ...]:\n"
+        "        \"\"\"Per-stage shares of the tick timer's duty cycle (host "
+        "time in\n"
+        "        tick calls; see :meth:`serving_stats`).\"\"\"\n")],
+}
 TWINS = [("occam/search.py", name) for name in (
     "FRONTIER_FORMAT_VERSION", "FRONTIER_DOCUMENT_KEYS", "OBJECTIVES",
     "_det", "_OBJECTIVE_KEYS", "Candidate.throughput",
@@ -143,8 +284,12 @@ TWINS = [("occam/search.py", name) for name in (
 @pytest.mark.parametrize("rel,name", TWINS,
                          ids=[f"{r}::{n}" for r, n in TWINS])
 def test_twin_definitions_match_reference_source(rel, name):
-    assert _sources(SRC / "repro_torch" / rel)[name] == \
-        _sources(SRC / "repro" / rel)[name]
+    want = _sources(SRC / "repro" / rel)[name]
+    if rel == "occam/serve/engine.py":
+        for old, new in ENGINE_TRACED.get(name, ()):
+            assert want.count(old) == 1
+            want = want.replace(old, new)
+    assert _sources(SRC / "repro_torch" / rel)[name] == want
 
 
 def test_search_twin_differs_only_where_stated():
@@ -165,12 +310,15 @@ def test_engine_twin_differs_only_where_stated():
     only in how it takes, packs and joins images: ``submit`` (numpy or a
     tensor, the dtype checked at the front door), ``_stage`` (pinned
     host packing and a copy to the deployment's device) and
-    ``_deliver`` (``torch.cat``)."""
+    ``_deliver`` (``torch.cat``); and in the methods whose changes
+    ``ENGINE_TRACED`` states (the ``occam.trace`` spans and records, the
+    round's cause, the tick timer's docstrings)."""
     rel = "occam/serve/engine.py"
     port = _sources(SRC / "repro_torch" / rel)
     ref = _sources(SRC / "repro" / rel)
     assert set(port) == set(ref)
-    assert {k for k in port if port[k] != ref[k]} == ENGINE_OWN
+    assert {k for k in port if port[k] != ref[k]} == \
+        ENGINE_OWN | set(ENGINE_TRACED)
 
 
 CAPACITIES = [786_432, 3_145_728, 12_582_912]
