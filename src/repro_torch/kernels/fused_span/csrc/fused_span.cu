@@ -19,10 +19,10 @@
 // output, spills and weights. The rings of a full-width span (several MB
 // per image) do not fit the 227 KB of shared memory, so they live in a
 // device-memory workspace of batch x closure elements that stays in the
-// 50 MB L2. So a row's time is latency: a cluster barrier, the L2 round
-// trip for the rows just written, the row's weights streamed from L2 at
-// about 27 B/clk per SM, then its FMAs. One CTA per image, scalar FMAs
-// with two loads each, would leave 124 of 132 SMs idle at batch 8.
+// 50 MB L2. So the time goes to latency: cluster barriers, the L2 round
+// trip for rows just written, weights streamed from L2 at about 27 B/clk
+// per SM, then the FMAs. One CTA per image, scalar FMAs with two loads
+// each, would leave 124 of 132 SMs idle at batch 8.
 //
 // What the design does about it.
 // - A thread-block cluster of 16 CTAs (8 where the device cannot place 16)
@@ -30,18 +30,27 @@
 //   CTA owns a fixed tile (columns x channels) of every map's W_out x
 //   C_out row, chosen per map by kernel.py and read from the descriptor;
 //   the tiles of a row cover it once. The input-block copy into ring 0,
-//   pool rows, residual adds and spills are split over the same tiles. A
-//   cluster barrier (arrive.release / wait.acquire) ends every produced
-//   row and every arrival, so a ring slot is rewritten only after every
-//   CTA has passed the rows that read it. Ring and source reads bypass L1
-//   (ld.global.cg, cp.async.cg): L1 is not coherent across the SMs. At
-//   most 128 registers and half an SM's shared memory per CTA let two
-//   CTAs share an SM, so 14 clusters of 16 are resident and a batch of 8
-//   runs in one wave.
+//   pool rows, residual adds and spills are split over the same tiles.
+//   Ring and source reads bypass L1 (ld.global.cg, cp.async.cg): L1 is
+//   not coherent across the SMs. At most 128 registers and half an SM's
+//   shared memory per CTA let two CTAs share an SM, so 14 clusters of 16
+//   are resident and a batch of 8 runs in one wave.
+// - One cluster barrier (arrive.release / wait.acquire) ends every
+//   arrival and every (step, map) group: the step's rows of one map (2-36
+//   of them in ResNet-18's and AlexNet's first spans), produced back to
+//   back. That is enough. A group's rows read only earlier maps (the
+//   map before and residual sources), written behind an earlier barrier,
+//   and nothing in the group reads the map it writes. Every ring slot a
+//   group rewrites was last read by the map's readers (the next map and
+//   its residual consumers) in earlier steps, behind an earlier barrier,
+//   as the schedule's rings retain every row still to be read. ResNet-18
+//   takes 229 barriers an image instead of one a row and arrival (630).
 // - A conv row is an implicit GEMM, A[W tile, K = k*k*C_in] times B[K,
 //   C_out tile] (the HWIO weights are B in K-major order), in K-chunks
-//   staged in shared memory by cp.async, two to four chunks deep. A is
-//   staged as the CTA's input window (k rows x the tile's columns x a
+//   staged in shared memory by cp.async, two to four chunks deep; the
+//   chunks of a group's rows are one stream, so the next row's first
+//   chunks load while a row's last is multiplied and its tile finished. A
+//   is staged as the CTA's input window (k rows x the tile's columns x a
 //   chunk of input channels, each value once, a tap table giving each K
 //   index's offset) where C_in is a multiple of 4, else as im2col rows
 //   through registers (converted to fp32, padding taps zeroed). Each
@@ -63,7 +72,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxK = 32;    // largest kernel size (rows of a conv window)
 constexpr int kMaxTaps = 128;  // largest k * k of a window-staged conv
 constexpr int kMaxConv = 128;
 constexpr int kMaxSrc = 8;
@@ -74,7 +82,7 @@ constexpr float kNegInf = -1e30f;
 // Dynamic shared memory holds, in order: a copy of the descriptor up to
 // its slot table (ints), the current step's row of the slot table at int
 // offset H_ROW, a conv tile's biases at float offset H_BIAS, and from
-// float offset H_STAGE the K-chunks of conv_tile.
+// float offset H_STAGE the K-chunks of conv_group.
 enum Header {
   H_NMAPS, H_INROWS, H_NSTEPS, H_TOTSLOTS, H_NRES, H_CLUSTER,
   H_ROW, H_BIAS, H_STAGE, H_MAPS, H_RES, H_SLOTS, H_ARRIVALS, H_TABLE, H_LEN
@@ -167,34 +175,141 @@ __device__ __forceinline__ unsigned cluster_reg(int which) {
   return v;
 }
 
-// The CTA's tile of a conv row: sums of the x0 .. x0+nx-1 columns and
-// c0 .. c0+nc-1 channels, one per K-split group, left in shared memory at
-// red[(g * twp + m) * tc + n]. Returns the number of groups.
+// Finish this CTA's tile of row r of map `off` (record mm) from its input
+// map (record mp): for a conv, the sums of its `groups` K-split groups, left
+// in shared memory at red[(g * twp + m) * tc + n]; for a pool, the window
+// maxima. Bias and ReLU, residual adds, the ring (or output) store and the
+// spill.
+template <typename T, bool kConv>
+__device__ __forceinline__ void finish_row(
+    const int* __restrict__ maps, const int* __restrict__ res, const int off,
+    const int n_maps, const int r, const int n, const int x0, const int nx,
+    const int c0, const int nc, T* ws, T* out, const SpanPtrs& p,
+    const float* sbias, const float* red, const int groups) {
+  const int* mm = maps + off * M_LEN;
+  const int* mp = maps + (off - 1) * M_LEN;
+  const int k = mm[M_K], stride = mm[M_STRIDE], pad = mm[M_PAD];
+  const int h_in = mp[M_H], w_in = mp[M_W], c_in = mp[M_C];
+  const int cap_in = mp[M_CAP];
+  const int h_out = mm[M_H], w_out = mm[M_W], c_out = mm[M_C];
+  const int n_out = w_out * c_out;
+  const int tc = mm[M_TC];
+  const T* ring_in = ws + mp[M_RING];
+  T* dst = off < n_maps - 1
+               ? ws + mm[M_RING] + (long long)(r % mm[M_CAP]) * n_out
+               : out + (long long)r * n_out;
+  T* spill_dst = nullptr;
+  if (mm[M_SPILL] >= 0) {
+    spill_dst = static_cast<T*>(p.spill[mm[M_SPILL]]) +
+                ((long long)n * h_out + r) * n_out;
+  }
+  // Residual edge e's value at (xo, co), option-A projection: strided rows
+  // and columns, channel zero-pad or trim. False where it adds nothing.
+  auto residual = [&](int e, int xo, int co, float* val) {
+    const int* rs = res + (mm[M_RES0] + e) * R_LEN;
+    const int h_s = rs[R_H], w_s = rs[R_W], c_s = rs[R_C];
+    const int sh = max(h_s / h_out, 1), sw = max(w_s / w_out, 1);
+    const int src_abs = min(r * sh, h_s - 1);
+    const int xs = xo * sw;
+    if (co >= c_s || xs >= w_s) return false;
+    const T* srow;
+    if (rs[R_SRC_KIND] == 0) {
+      const int* ms = maps + rs[R_SRC] * M_LEN;
+      srow = ws + ms[M_RING] + (long long)(src_abs % ms[M_CAP]) * w_s * c_s;
+    } else {
+      srow = static_cast<const T*>(p.src[rs[R_SRC]]) +
+             ((long long)n * h_s + src_abs) * w_s * c_s;
+    }
+    *val = ld_act(srow + (long long)xs * c_s + co);
+    return true;
+  };
+  const int twp = (mm[M_TW] + 3) & ~3;
+  for (int o = threadIdx.x; o < nx * nc; o += blockDim.x) {
+    const int m = o / nc, nn = o - m * nc;
+    const int xo = x0 + m, co = c0 + nn;
+    // the first residual's load flies while the row value is formed
+    float r0 = 0.f;
+    const bool has_r0 = mm[M_NRES] > 0 && residual(0, xo, co, &r0);
+    float v;
+    if (kConv) {
+      float s0 = 0.f, s1 = 0.f;  // two independent partial sums
+      int gg = 0;
+      for (; gg + 1 < groups; gg += 2) {
+        s0 += red[(gg * twp + m) * tc + nn];
+        s1 += red[((gg + 1) * twp + m) * tc + nn];
+      }
+      if (gg < groups) s0 += red[(gg * twp + m) * tc + nn];
+      v = fmaxf(s0 + s1 + sbias[nn], 0.f);
+    } else {
+      float mx = kNegInf;  // padding rows and columns read as -1e30
+      for (int t0 = 0; t0 < k * k; t0 += 16) {  // 16 taps' loads in flight
+        float tv[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const int tap = t0 + u, dy = tap / k, dx = tap - dy * k;
+          const int rr = r * stride - pad + dy;
+          const int col = xo * stride - pad + dx;
+          tv[u] = tap < k * k && rr >= 0 && rr < h_in && col >= 0 &&
+                          col < w_in
+                      ? ld_act(ring_in +
+                               ((long long)(rr % cap_in) * w_in + col) * c_in +
+                               co)
+                      : kNegInf;
+        }
+#pragma unroll
+        for (int u = 0; u < 16; ++u) mx = fmaxf(mx, tv[u]);
+      }
+      v = mx;
+    }
+    // residual adds in fp32 before the cast, in net order
+    if (has_r0) v += r0;
+    for (int e = 1; e < mm[M_NRES]; ++e) {
+      float re;
+      if (residual(e, xo, co, &re)) v += re;
+    }
+    const T o_v = from_f<T>(v);
+    const long long idx = (long long)xo * c_out + co;
+    dst[idx] = o_v;
+    if (spill_dst != nullptr) spill_dst[idx] = o_v;
+  }
+}
+
+// This CTA's tile (columns x0 .. x0+nx-1, channels c0 .. c0+nc-1) of the
+// n_rows conv rows rows[0 .. n_rows) of map `off`: one group, whose rows
+// read only maps finished behind an earlier cluster barrier.
 //
-// K = k*k*C_in is walked in chunks; shared memory holds M_STAGES of them,
-// each an A part then B[kc][tc] (kc K indices of the chunk), and
-// M_STAGES - 1 chunks are in flight while one is multiplied. A is staged
-// one of two ways (M_MODE):
+// Each row's K = k*k*C_in is walked in chunks, and the group's rows are
+// one stream of chunks: shared memory holds M_STAGES of them, each an A
+// part then B[kc][tc] (kc K indices of the chunk), and M_STAGES - 1
+// chunks are in flight while one is multiplied, the next row's first
+// chunks while a row's last is multiplied and its tile finished. A is
+// staged one of two ways (M_MODE):
 // - im2col: a chunk is M_BK consecutive K indices, A[twp][M_BK + 4];
 // - window: a chunk is every tap over M_BK input channels, and A is the
 //   CTA's input window W[k][(twp - 1) * stride + k][M_BK + 4], each input
 //   value staged once instead of once per tap; a tap table gives a K
 //   index's window offset.
+// A row's K-split sums go to the stage of its last chunk (after the
+// stages, where they do not fit one) for finish_row. The stream keeps its
+// row, chunk and stage as counters, so a chunk costs no division or
+// modulo: on the H100 that made ResNet-18's last spans, 16 small chunks a
+// row, 7% faster at one image.
 template <typename T>
-__device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
-                                         const int r, const int x0,
-                                         const int nx, const int c0,
-                                         const int nc, const T* ring_in,
-                                         const float* __restrict__ wt,
-                                         const float* __restrict__ bias,
-                                         float* sbias, float* sm,
-                                         long long* rowbase, int* tapoff) {
+__device__ __forceinline__ void conv_group(
+    const int* __restrict__ maps, const int* __restrict__ res, const int off,
+    const int n_maps, const int* rows, const int n_rows, const int n,
+    const int x0, const int nx, const int c0, const int nc, T* ws, T* out,
+    const SpanPtrs& p, float* sbias, float* sm, int* tapoff) {
+  const int* mm = maps + off * M_LEN;
+  const int* mp = maps + (off - 1) * M_LEN;
   const int k = mm[M_K], stride = mm[M_STRIDE], pad = mm[M_PAD];
   const int h_in = mp[M_H], w_in = mp[M_W], c_in = mp[M_C];
   const int cap_in = mp[M_CAP], c_out = mm[M_C];
   const int tc = mm[M_TC], twp = (mm[M_TW] + 3) & ~3;
   const int bk = mm[M_BK], ks = mm[M_KS], stages = mm[M_STAGES];
   const bool window = mm[M_MODE] == 1;
+  const T* ring_in = ws + mp[M_RING];
+  const float* __restrict__ wt = p.w[mm[M_CONV]];
   const int lg_bk = __ffs(bk) - 1;
   const int cstr = bk + 4;  // row stride of A (both modes)
   const int wcols = (twp - 1) * stride + k;
@@ -203,20 +318,20 @@ __device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
   const int st_size = a_size + kc * tc;
   const int kdim = k * k * c_in;
   const int n_chunks = window ? (c_in + bk - 1) / bk : (kdim + bk - 1) / bk;
+  const bool red_in_stage = ks * twp * tc <= st_size;
   const int tid = threadIdx.x;
-  if (tid < k) {
-    const int rr = r * stride - pad + tid;
-    rowbase[tid] = (rr >= 0 && rr < h_in)
-                       ? (long long)(rr % cap_in) * w_in * c_in
-                       : -1;
-  }
-  if (window) {
+  if (window) {  // read after chunk 0's __syncthreads
     for (int t = tid; t < k * k; t += kThreads) {
       const int dy = t / k;
       tapoff[t] = (dy * wcols + t - dy * k) * cstr;
     }
   }
-  __syncthreads();
+  // element offset of row r's input row dy in its ring, -1 in the padding
+  auto row_base = [&](int r, int dy) -> long long {
+    const int rr = r * stride - pad + dy;
+    return rr >= 0 && rr < h_in ? (long long)(rr % cap_in) * w_in * c_in
+                                : -1;
+  };
   const int col_base = x0 * stride - pad;
   // 16-byte copies of 4 fp32 channels need C_in % 4 == 0 and an aligned
   // ring; otherwise A goes through registers (converted, zero-padded).
@@ -231,7 +346,7 @@ __device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
   // - pad + dx, channel ci, where k0 + kk = (dy * k + dx) * C_in + ci. K
   // positions (groups of 4 when vectorised) over `lanes` threads, columns
   // over the rest; a position's (dy, dx, ci) is split once.
-  auto load_im2col = [&](int k0, float* as) {
+  auto load_im2col = [&](int r, int k0, float* as) {
     const int kpos = vec_a ? bk >> 2 : bk;
     const int lanes = min(kpos, kThreads);  // powers of 2
     const int lg_l = __ffs(lanes) - 1;
@@ -245,7 +360,7 @@ __device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
         const int kg = k0 + kk;
         const int tap = kg / c_in, ci = kg - tap * c_in;
         const int dy = tap / k, dx = tap - dy * k;
-        rb = rowbase[dy];
+        rb = row_base(r, dy);
         col0 = col_base + dx;
         rb = rb < 0 ? -1 : rb + ci;
       }
@@ -280,11 +395,11 @@ __device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
   };
   // window: W[dy][col][ci - ci0] = ring row (r*stride - pad + dy), column
   // x0*stride - pad + col, channel ci, for ci in [ci0, ci0 + bk)
-  auto load_window = [&](int ci0, float* ws_) {
+  auto load_window = [&](int r, int ci0, float* ws_) {
     const int q_lg = vec_a ? lg_bk - 2 : lg_bk;  // channels (or 4s) per col
     const int n_e = wcols << q_lg;
     for (int dy = 0; dy < k; ++dy) {
-      const long long rb = rowbase[dy];
+      const long long rb = row_base(r, dy);
       float* wrow = ws_ + dy * wcols * cstr;
       if (vec_a) {
         const float* ring = reinterpret_cast<const float*>(ring_in);
@@ -348,13 +463,14 @@ __device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
       }
     }
   };
-  auto fetch = [&](int c) {  // one cp.async group per chunk, maybe empty
-    if (c < n_chunks) {
-      float* as = sm + (c % stages) * st_size;
+  // chunk c of row j into stage s; one cp.async group, maybe empty
+  auto fetch = [&](int j, int c, int s) {
+    if (j < n_rows) {
+      float* as = sm + s * st_size;
       if (window) {
-        load_window(c * bk, as);
+        load_window(rows[j], c * bk, as);
       } else {
-        load_im2col(c * bk, as);
+        load_im2col(rows[j], c * bk, as);
       }
       load_b(c, as + a_size);
     }
@@ -370,16 +486,13 @@ __device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
   const bool active = g < ks;
   const int mstr = window ? stride * cstr : cstr;  // A: next column
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
+  const float* __restrict__ bias = p.bias[mm[M_CONV]];
   for (int i = tid; i < nc; i += kThreads) {  // lands with chunk 0
     cp_async4(sbias + i, bias + c0 + i, 4);
   }
-  for (int s = 0; s < stages - 1; ++s) fetch(s);
-  for (int c = 0; c < n_chunks; ++c) {
+  for (int i = 0; i < stages - 1; ++i) fetch(i / n_chunks, i % n_chunks, i);
+  int row = 0, c = 0, s = 0;  // the row and chunk multiplied, their stage
+  while (row < n_rows) {
     if (stages == 2) {
       cp_async_wait<0>();
     } else if (stages == 3) {
@@ -387,11 +500,27 @@ __device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
     } else {
       cp_async_wait<2>();
     }
-    __syncthreads();  // chunk c is in; chunk c - 1's stage is free
-    fetch(c + stages - 1);
+    __syncthreads();  // the chunk is in; the last one's stage is free
+    {  // the chunk stages - 1 ahead, into that stage
+      int fr = row, fc = c + stages - 1;
+      while (fc >= n_chunks) {
+        fc -= n_chunks;
+        ++fr;
+      }
+      fetch(fr, fc, s == 0 ? stages - 1 : s - 1);
+    }
+    float* st = sm + s * st_size;
+    if (++s == stages) s = 0;
+    if (c == 0) {  // a row's first chunk
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      }
+    }
     if (active) {
-      const float* ap = sm + (c % stages) * st_size + tm * mstr;
-      const float* bp = sm + (c % stages) * st_size + a_size + 4 * tn;
+      const float* ap = st + tm * mstr;
+      const float* bp = st + a_size + 4 * tn;
       const int kend = window ? kc : min(bk, kdim - c * bk);
       // A offset of K index kk, looked up one step ahead in window mode
       auto a_off = [&](int kk) {
@@ -420,139 +549,61 @@ __device__ __forceinline__ int conv_tile(const int* mm, const int* mp,
         ak = ak_next;
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every chunk multiplied: the stages take the sums
-  if (active) {
+    if (++c < n_chunks) continue;
+    // the row's sums are complete; the next row's chunks are in flight
+    float* red = red_in_stage ? st : sm + stages * st_size;
+    __syncthreads();  // every group has multiplied the chunk
+    if (active) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      *reinterpret_cast<float4*>(sm + (g * twp + tm + i * ntm) * tc +
-                                 4 * tn) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float4*>(red + (g * twp + tm + i * ntm) * tc +
+                                   4 * tn) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
     }
+    __syncthreads();
+    // the next chunk's __syncthreads frees `red` before a fetch rewrites it
+    finish_row<T, true>(maps, res, off, n_maps, rows[row], n, x0, nx, c0, nc,
+                        ws, out, p, sbias, red, ks);
+    c = 0;
+    ++row;
   }
-  __syncthreads();
-  return ks;
+  cp_async_wait<0>();  // the stream's trailing empty groups
 }
 
-// Produce this CTA's tile of row r of map `off` (record mm) from its
-// input map (record mp). Uniform over the CTA.
+// This CTA's tile of the n_rows rows rows[0 .. n_rows) of map `off`, one
+// (step, map) group. Uniform over the CTA.
 template <typename T>
-__device__ __forceinline__ void produce_row(const int* __restrict__ maps,
-                                            const int* __restrict__ res,
-                                            const int off, const int n_maps,
-                                            const int r, const int n,
-                                            const int rank, T* ws, T* out,
-                                            const SpanPtrs& p, float* sbias,
-                                            float* sm, long long* rowbase,
-                                            int* tapoff) {
+__device__ __forceinline__ void produce_group(
+    const int* __restrict__ maps, const int* __restrict__ res, const int off,
+    const int n_maps, const int* rows, const int n_rows, const int n,
+    const int rank, T* ws, T* out, const SpanPtrs& p, float* sbias,
+    float* sm, int* tapoff) {
   const int* mm = maps + off * M_LEN;
-  const int* mp = maps + (off - 1) * M_LEN;
-  const int kind = mm[M_KIND], k = mm[M_K];
-  const int stride = mm[M_STRIDE], pad = mm[M_PAD];
-  const int h_in = mp[M_H], w_in = mp[M_W], c_in = mp[M_C];
-  const int cap_in = mp[M_CAP];
-  const int h_out = mm[M_H], w_out = mm[M_W], c_out = mm[M_C];
-  const int n_out = w_out * c_out;
+  const int w_out = mm[M_W], c_out = mm[M_C];
   const int nct = mm[M_NCT], tw = mm[M_TW], tc = mm[M_TC];
   const int x0 = (rank / nct) * tw, c0 = (rank % nct) * tc;
   const int nx = min(tw, w_out - x0), nc = min(tc, c_out - c0);
-  if (nx <= 0 || nc <= 0) return;  // a CTA with no tile in this row
-  const T* ring_in = ws + mp[M_RING];
-  T* dst = off < n_maps - 1
-               ? ws + mm[M_RING] + (long long)(r % mm[M_CAP]) * n_out
-               : out + (long long)r * n_out;
-  T* spill_dst = nullptr;
-  if (mm[M_SPILL] >= 0) {
-    spill_dst = static_cast<T*>(p.spill[mm[M_SPILL]]) +
-                ((long long)n * h_out + r) * n_out;
-  }
-  int groups = 0;
-  if (kind == 0) {
-    groups = conv_tile<T>(mm, mp, r, x0, nx, c0, nc, ring_in,
-                          p.w[mm[M_CONV]], p.bias[mm[M_CONV]], sbias, sm,
-                          rowbase, tapoff);
-  }
-  // Residual edge e's value at (xo, co), option-A projection: strided rows
-  // and columns, channel zero-pad or trim. False where it adds nothing.
-  auto residual = [&](int e, int xo, int co, float* val) {
-    const int* rs = res + (mm[M_RES0] + e) * R_LEN;
-    const int h_s = rs[R_H], w_s = rs[R_W], c_s = rs[R_C];
-    const int sh = max(h_s / h_out, 1), sw = max(w_s / w_out, 1);
-    const int src_abs = min(r * sh, h_s - 1);
-    const int xs = xo * sw;
-    if (co >= c_s || xs >= w_s) return false;
-    const T* srow;
-    if (rs[R_SRC_KIND] == 0) {
-      const int* ms = maps + rs[R_SRC] * M_LEN;
-      srow = ws + ms[M_RING] + (long long)(src_abs % ms[M_CAP]) * w_s * c_s;
-    } else {
-      srow = static_cast<const T*>(p.src[rs[R_SRC]]) +
-             ((long long)n * h_s + src_abs) * w_s * c_s;
+  if (nx <= 0 || nc <= 0) return;  // a CTA with no tile in this map
+  if (mm[M_KIND] == 0) {
+    conv_group<T>(maps, res, off, n_maps, rows, n_rows, n, x0, nx, c0, nc,
+                  ws, out, p, sbias, sm, tapoff);
+  } else {
+    for (int j = 0; j < n_rows; ++j) {
+      finish_row<T, false>(maps, res, off, n_maps, rows[j], n, x0, nx, c0,
+                           nc, ws, out, p, sbias, nullptr, 0);
     }
-    *val = ld_act(srow + (long long)xs * c_s + co);
-    return true;
-  };
-  const int twp = (tw + 3) & ~3;
-  for (int o = threadIdx.x; o < nx * nc; o += blockDim.x) {
-    const int m = o / nc, nn = o - m * nc;
-    const int xo = x0 + m, co = c0 + nn;
-    // the first residual's load flies while the row value is formed
-    float r0 = 0.f;
-    const bool has_r0 = mm[M_NRES] > 0 && residual(0, xo, co, &r0);
-    float v;
-    if (kind == 0) {
-      float s0 = 0.f, s1 = 0.f;  // two independent partial sums
-      int gg = 0;
-      for (; gg + 1 < groups; gg += 2) {
-        s0 += sm[(gg * twp + m) * tc + nn];
-        s1 += sm[((gg + 1) * twp + m) * tc + nn];
-      }
-      if (gg < groups) s0 += sm[(gg * twp + m) * tc + nn];
-      v = fmaxf(s0 + s1 + sbias[nn], 0.f);
-    } else {
-      float mx = kNegInf;  // padding rows and columns read as -1e30
-      for (int t0 = 0; t0 < k * k; t0 += 16) {  // 16 taps' loads in flight
-        float tv[16];
-#pragma unroll
-        for (int u = 0; u < 16; ++u) {
-          const int tap = t0 + u, dy = tap / k, dx = tap - dy * k;
-          const int rr = r * stride - pad + dy;
-          const int col = xo * stride - pad + dx;
-          tv[u] = tap < k * k && rr >= 0 && rr < h_in && col >= 0 &&
-                          col < w_in
-                      ? ld_act(ring_in +
-                               ((long long)(rr % cap_in) * w_in + col) * c_in +
-                               co)
-                      : kNegInf;
-        }
-#pragma unroll
-        for (int u = 0; u < 16; ++u) mx = fmaxf(mx, tv[u]);
-      }
-      v = mx;
-    }
-    // residual adds in fp32 before the cast, in net order
-    if (has_r0) v += r0;
-    for (int e = 1; e < mm[M_NRES]; ++e) {
-      float re;
-      if (residual(e, xo, co, &re)) v += re;
-    }
-    const T o_v = from_f<T>(v);
-    const long long idx = (long long)xo * c_out + co;
-    dst[idx] = o_v;
-    if (spill_dst != nullptr) spill_dst[idx] = o_v;
   }
 }
 
 // One cluster per image, two CTAs per SM at most (128 registers, at most
 // half the SM's shared memory each); __grid_constant__ keeps p in the
-// parameter space when produce_row indexes its pointer tables.
+// parameter space when finish_row and conv_group index its pointer tables.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_span_kernel(const int* __restrict__ desc,
                       const __grid_constant__ SpanPtrs p) {
   extern __shared__ float4 smem4[];
-  __shared__ long long rowbase[kMaxK];
   __shared__ int tapoff[kMaxTaps];
   int* sd = reinterpret_cast<int*>(smem4);
   // the descriptor up to its slot table, read once into shared memory: the
@@ -620,13 +671,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     int slot = 0;
     for (int off = 1; off < n_maps; ++off) {
-      for (int u = 0; u < slots[off - 1]; ++u, ++slot) {
-        const int r = srow[slot];
-        if (r < 0) continue;  // uniform across the cluster
-        produce_row<T>(maps, res, off, n_maps, r, n, rank, ws, out, p, sbias,
-                       sm, rowbase, tapoff);
+      // the step's rows of map `off` lead its slots, -1 after them
+      int n_rows = 0;
+      while (n_rows < slots[off - 1] && srow[slot + n_rows] >= 0) ++n_rows;
+      if (n_rows > 0) {  // uniform across the cluster
+        produce_group<T>(maps, res, off, n_maps, srow + slot, n_rows, n, rank,
+                         ws, out, p, sbias, sm, tapoff);
         cluster_sync();
       }
+      slot += slots[off - 1];
     }
   }
 }

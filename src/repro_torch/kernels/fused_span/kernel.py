@@ -35,7 +35,11 @@ note.
 The rings live in a device-memory workspace of exactly
 ``batch x schedule.scratch_elems()`` elements, allocated here with
 ``torch.empty``; the kernel launches on the current stream, does not
-synchronise, and ``launches`` counts its launches. A span the geometry
+synchronise, and ``launches`` counts its launches. ``rows`` and
+``barriers`` add up, launch by launch, the rows one image of the span
+produces and the cluster barriers it waits at (:func:`span_counts`): one
+per input arrival and one per (step, map) group of rows, so ``rows /
+barriers`` says how many rows a barrier covers. A span the geometry
 cannot serve (a kernel wider than 32, a row tile over 16 x 256 outputs,
 no cluster the device can place) raises; there is no fallback.
 """
@@ -51,10 +55,14 @@ from repro_torch.core.graph import NetSpec
 
 from .. import _build
 
-# kernel launches since import (or since the caller last reset it)
+# kernel launches since import (or since the caller last reset it), and
+# the rows and cluster barriers of one image of each launch's span
 launches = 0
+rows = 0
+barriers = 0
 # the shape of the last launch: clusters, CTAs per cluster, threads, bytes
-# of dynamic shared memory, and how many clusters the device holds at once
+# of dynamic shared memory, how many clusters the device holds at once,
+# and an image's rows and cluster barriers
 last_launch: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -67,13 +75,13 @@ _H_LEN, _M_LEN, _R_LEN = 14, 20, 5
 # launch geometry (csrc/fused_span.cu constants)
 THREADS = 256            # threads per CTA (kThreads)
 MICRO = 4                # a thread's register tile: 4 columns x 4 channels
-MAX_K = 32               # widest conv or pool window (kMaxK)
+MAX_K = 32               # widest conv or pool window the geometry takes
 MAX_TAPS = 128           # most taps (k * k) of a window-staged conv
 MAX_BK = 512             # largest K-chunk (a power of two)
 MAX_STAGES = 4           # K-chunks held in shared memory at once
 SMEM_LIMIT = 232_448     # shared memory a CTA may use on the H100
-# the kernel's static shared memory: row bases and the tap table
-STATIC_SMEM = 8 * MAX_K + 4 * MAX_TAPS
+# the kernel's static shared memory: the tap table
+STATIC_SMEM = 4 * MAX_TAPS
 # dynamic shared memory per CTA, so two CTAs share an SM's 228 KB; the
 # K-chunks leave DESC_RESERVE of it to the descriptor's copy
 SMEM_BUDGET = 114_688
@@ -140,7 +148,9 @@ def row_tile(kind: str, k: int, c_in: int, w: int, c: int,
     padded work on one CTA wins, then the one staging the fewest A and B
     values per K index. A conv's K-chunk and stage count keep the most of
     K in as few chunks as ``SMEM_BUDGET - DESC_RESERVE`` holds, then as
-    many of them in flight as fit. Raises ValueError
+    many of them in flight as fit. A row's K-split sums share the stage
+    of its last chunk, or follow the stages where they do not fit one,
+    so the next row's chunks stay in flight meanwhile. Raises ValueError
     when no tiling fits 16 x 256 outputs per CTA (a 4 x 4 register tile
     per thread) or the window is wider than the kernel takes."""
     if k > MAX_K:
@@ -173,25 +183,25 @@ def row_tile(kind: str, k: int, c_in: int, w: int, c: int,
     choice = None
     bk = MICRO
     while bk <= min(MAX_BK, max(MICRO, 1 << (span - 1).bit_length())):
+        kc = k * k * bk if window else bk
+        ks = min(THREADS // ((twp // MICRO) * (tc // MICRO)), kc // MICRO)
+        stage = _stage_bytes(twp, tc, k, stride, bk, window)
+        red = ks * twp * tc * 4
         for stages in range(2, MAX_STAGES + 1):
-            smem = stages * _stage_bytes(twp, tc, k, stride, bk, window)
+            smem = stages * stage + (red if red > stage else 0)
             if smem > SMEM_BUDGET - DESC_RESERVE:
                 break
             # fewest chunks first (each costs a round trip), then depth
             key = (min(bk, span), stages)
             if choice is None or key > choice[0]:
-                choice = (key, bk, stages)
+                choice = (key, RowTile(tw, tc, n_wt, n_ct, bk, ks, stages,
+                                       smem, window))
         bk *= 2
     if choice is None:
         raise ValueError(f"a {k}x{k} conv tile of {tw} x {tc} outputs does "
                          f"not fit {SMEM_BUDGET - DESC_RESERVE} bytes of "
                          f"shared memory")
-    _key, bk, stages = choice
-    kc = k * k * bk if window else bk
-    ks = min(THREADS // ((twp // MICRO) * (tc // MICRO)), kc // MICRO)
-    smem = max(stages * _stage_bytes(twp, tc, k, stride, bk, window),
-               ks * twp * tc * 4)
-    return RowTile(tw, tc, n_wt, n_ct, bk, ks, stages, smem, window)
+    return choice[1]
 
 
 @dataclass(frozen=True)
@@ -216,6 +226,16 @@ def span_geometry(net: NetSpec, a: int, b: int,
                               layer.stride))
     smem = max([16] + [t.smem for t in tiles[1:]])
     return SpanGeometry(cluster, smem, tuple(tiles))
+
+
+def span_counts(schedule: closure.SpanSchedule) -> tuple[int, int]:
+    """(rows, cluster barriers) of one image of a span's launch: every row
+    the schedule produces, and a barrier for each input arrival and each
+    (step, map) group, the step's rows of one map, which the kernel
+    produces back to back."""
+    groups = [ops for step in schedule.steps for ops in step if ops]
+    arrivals = sum(blk >= 0 for blk in schedule.arrivals)
+    return sum(map(len, groups)), len(groups) + arrivals
 
 
 def _descriptor(net: NetSpec, a: int, b: int,
@@ -301,9 +321,9 @@ def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
                out_rows: int, src_keys: tuple[int, ...], dtype: torch.dtype,
                device: torch.device):
     """(workspace elems per image, geometry, launch shared memory, resident
-    clusters, device descriptor) of one span, built once per (span, spill,
-    tile height, dtype, device, cluster sizes) and cached: a launch then
-    does no schedule or geometry work on the host.
+    clusters, device descriptor, :func:`span_counts`) of one span, built
+    once per (span, spill, tile height, dtype, device, cluster sizes) and
+    cached: a launch then does no schedule or geometry work on the host.
 
     The geometry is the one for the largest size in ``CLUSTER_SIZES`` the
     device can place (16, else 8); RuntimeError when it can place none,
@@ -334,7 +354,7 @@ def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
         if resident >= 1:
             desc = torch.tensor(words, dtype=torch.int32, device=device)
             plan = _plans[key] = (schedule.scratch_elems(), geom, smem,
-                                  resident, desc)
+                                  resident, desc, span_counts(schedule))
             return plan
     raise RuntimeError(f"span ({a}, {b}): the device places no cluster of "
                        f"{' or '.join(map(str, sizes))} CTAs with "
@@ -391,7 +411,7 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     tensor, an unsupported dtype, a span outside the launch geometry, or a
     failed build or launch.
     """
-    global launches
+    global launches, rows, barriers
     spill = tuple(sorted(set(spill)))
     src_keys = crossing_sources(net, a, b, srcs)
     if not xs.is_cuda:
@@ -428,8 +448,8 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
                       device=dev)
     spills = [torch.empty((batch,) + net.map_shape(m), dtype=xs.dtype,
                           device=dev) for m in spill]
-    per_image, geom, smem, resident, desc = _span_plan(
-        net, a, b, spill, out_rows, src_keys, xs.dtype, dev)
+    plan = _span_plan(net, a, b, spill, out_rows, src_keys, xs.dtype, dev)
+    per_image, geom, smem, resident, desc, (n_rows, n_barriers) = plan
     workspace = torch.empty(batch * per_image, dtype=xs.dtype, device=dev)
     launch = _launcher()
     with torch.cuda.device(dev):
@@ -443,10 +463,13 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     if rc != 0:
         raise RuntimeError(f"fused-span kernel launch failed: CUDA error {rc}")
     launches += 1
+    rows += n_rows
+    barriers += n_barriers
     last_launch.clear()
     last_launch.update(clusters=batch, cluster=geom.cluster,
                        ctas=batch * geom.cluster, threads=THREADS,
-                       smem=smem, resident_clusters=resident)
+                       smem=smem, resident_clusters=resident, rows=n_rows,
+                       barriers=n_barriers)
     return out, dict(zip(spill, spills))
 
 

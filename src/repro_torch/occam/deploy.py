@@ -421,8 +421,9 @@ class _RoundStep:
     last bound copies them into the step's buffers before its replay.
 
     A replay launches the kernels without passing through their
-    wrappers, so the step adds to the fused-span kernel's launch count
-    the number of launches the capture recorded, once per replay.
+    wrappers, so the step adds to the fused-span kernel's counts of
+    launches, rows and barriers what the capture recorded, once per
+    replay.
     """
 
     def __init__(self, deployment: Deployment, round_batch: int):
@@ -430,6 +431,8 @@ class _RoundStep:
         self.round_batch = round_batch
         self.builds = 0
         self.launches_per_replay = 0
+        self.rows_per_replay = 0
+        self.barriers_per_replay = 0
         self.graph: torch.cuda.CUDAGraph | None = None
         self._params: list[dict] | None = None
         self._bound = None
@@ -463,7 +466,8 @@ class _RoundStep:
             self._execute(self._params, self._x)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = span_kernel.launches
+        before = (span_kernel.launches, span_kernel.rows,
+                  span_kernel.barriers)
         # a dead step's graph, freed by the cyclic garbage collector in
         # the middle of this capture, would invalidate it (destroying a
         # graph is illegal while a stream captures): collect first, then
@@ -483,8 +487,11 @@ class _RoundStep:
             if collecting:
                 gc.enable()
             # a capture records launches, it makes none
-            self.launches_per_replay = span_kernel.launches - before
-            span_kernel.launches = before
+            self.launches_per_replay = span_kernel.launches - before[0]
+            self.rows_per_replay = span_kernel.rows - before[1]
+            self.barriers_per_replay = span_kernel.barriers - before[2]
+            (span_kernel.launches, span_kernel.rows,
+             span_kernel.barriers) = before
         self.graph = graph
 
     def __call__(self, params: list[dict], xs: torch.Tensor) -> torch.Tensor:
@@ -505,6 +512,8 @@ class _RoundStep:
         self._x[n:].zero_()
         self.graph.replay()
         span_kernel.launches += self.launches_per_replay
+        span_kernel.rows += self.rows_per_replay
+        span_kernel.barriers += self.barriers_per_replay
         return self._y.clone()
 
 

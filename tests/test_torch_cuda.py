@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import convert, occam
 from repro_torch.configs import get_smoke
+from repro_torch.core import closure
 from repro_torch.core.graph import chain
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain_call
@@ -71,6 +72,16 @@ CASES = [
      12, 3, ((1, 3),), None),
     ("opt-a-memory", [(C, 3, 1, 1, 8), (C, 3, 2, 1, 16), (C, 3, 1, 1, 16)],
      12, 3, ((1, 3),), (2, 3)),
+    # ResNet's stem, pool and three 3x3 convs at 64x64 with a shortcut:
+    # the stem's (step, map) groups hold 8 rows (10 at out_rows 2)
+    ("resnet-groups-64", [(C, 7, 2, 3, 16), (P, 3, 2, 1, 0),
+                          (C, 3, 1, 1, 16), (C, 3, 1, 1, 16),
+                          (C, 3, 1, 1, 16)], 64, 3, ((2, 4),), None),
+    # a group of 8 (16) rows of a 64 x 256 map: 8,192 or more outputs a
+    # CTA, wider than its 16 x 256 tile, and K-split sums too large for a
+    # K-chunk's stage
+    ("wide-group", [(C, 3, 1, 1, 256)] + [(C, 3, 2, 1, 16)] * 3, 64, 4, (),
+     None),
 ]
 
 
@@ -108,7 +119,8 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, name, specs, hw, ch,
                                            edges, span):
     """The CUDA kernel equals its plain version on the card (fp32 1e-4
     with TF32 off; bf16 5e-2), output and spills, at out_rows 1 and 2, and
-    each call is one counted launch."""
+    each call is one counted launch that adds its schedule's rows and
+    cluster barriers."""
     rng = np.random.default_rng(0)
     net = chain(name, specs, in_h=hw, in_w=hw, in_ch=ch,
                 residual_edges=edges)
@@ -124,11 +136,16 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, name, specs, hw, ch,
     srcs = {s: maps[s] for (s, t) in edges if s < a < t <= b}
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     for out_rows in (1, 2):
-        before = kernel.launches
+        before = (kernel.launches, kernel.rows, kernel.barriers)
         got, got_sp = kernel.span_cuda_call(maps[a], params[a:b], net, a, b,
                                             out_rows=out_rows, srcs=srcs,
                                             spill=spill)
-        assert kernel.launches == before + 1
+        n_rows, n_barriers = kernel.span_counts(closure.span_schedule(
+            net, a, b, spill=spill, out_rows=out_rows))
+        assert (kernel.launches, kernel.rows, kernel.barriers) == (
+            before[0] + 1, before[1] + n_rows, before[2] + n_barriers)
+        assert (kernel.last_launch["rows"],
+                kernel.last_launch["barriers"]) == (n_rows, n_barriers)
         want, want_sp = span_plain_call(maps[a], params[a:b], net, a, b,
                                         out_rows=out_rows, srcs=srcs,
                                         spill=spill)
@@ -167,20 +184,23 @@ def test_deployment_on_gpu_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name,specs,hw,ch,edges,span", CASES,
                          ids=[c[0] for c in CASES])
-def test_cuda_kernel_matches_plain_at_cluster_8(cuda, monkeypatch, name,
-                                                specs, hw, ch, edges, span):
+def test_cuda_kernel_matches_plain_at_cluster_8(cuda, monkeypatch, dtype,
+                                                name, specs, hw, ch, edges,
+                                                span):
     """With ``CLUSTER_SIZES`` pinned to 8, every span launches clusters of
     8 CTAs (the geometry the H100 otherwise never takes, as it places
-    16) and still equals its plain version within fp32 1e-4."""
+    16) and still equals its plain version (fp32 1e-4, bf16 5e-2)."""
     monkeypatch.setattr(kernel, "CLUSTER_SIZES", (8,))
     rng = np.random.default_rng(0)
     net = chain(name, specs, in_h=hw, in_w=hw, in_ch=ch,
                 residual_edges=edges)
-    params = convert.params_from_numpy(numpy_params(net, rng), cuda)
+    params = [{k: v.to(dtype) for k, v in p.items()} for p in
+              convert.params_from_numpy(numpy_params(net, rng), cuda)]
     xs = torch.from_numpy(rng.standard_normal((2, hw, hw, ch),
-                                              np.float32)).to(cuda)
+                                              np.float32)).to(cuda, dtype)
     maps = cnn.reference_forward(params, xs, net, collect=True)
     a, b = span or (0, net.n_layers)
     cuts = [c for c in (a, b) if 0 < c < net.n_layers]
@@ -197,10 +217,12 @@ def test_cuda_kernel_matches_plain_at_cluster_8(cuda, monkeypatch, name,
                                         out_rows=out_rows, srcs=srcs,
                                         spill=spill)
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        tol = 1e-4 if dtype == torch.float32 else 5e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
         for m in spill:
-            torch.testing.assert_close(got_sp[m], want_sp[m], rtol=1e-4,
-                                       atol=1e-4)
+            torch.testing.assert_close(got_sp[m].float(), want_sp[m].float(),
+                                       rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -209,7 +231,7 @@ def test_session_on_gpu_equals_run(cuda, policy):
     """A serving session on the card replays one captured CUDA graph per
     round size: its lanes equal the eager ``run`` of the same images bit
     for bit, one capture serves every submit size, and each replay adds
-    the captured launches to the kernel's count."""
+    the captured launches, rows and barriers to the kernel's counts."""
     net = chain("res", [(C, 3, 2, 1, 4), (P, 3, 2, 1, 0), (C, 3, 1, 1, 4),
                         (C, 3, 1, 1, 4), (C, 3, 2, 1, 8), (C, 3, 1, 1, 8)],
                 in_h=16, in_w=16, in_ch=3, residual_edges=((2, 4), (4, 6)))
@@ -220,15 +242,26 @@ def test_session_on_gpu_equals_run(cuda, policy):
     assert spans > 0
     sizes = [4, 1, 5, 3]
     xs = [rng.standard_normal((n, 16, 16, 3), np.float32) for n in sizes]
-    before = kernel.launches
+    # an eager run's rows and barriers, which a replay must add as well
+    before = (kernel.rows, kernel.barriers)
+    dep.run(params, xs[0])
+    n_rows, n_barriers = kernel.rows - before[0], kernel.barriers - before[1]
+    assert n_barriers > 0
+    before = (kernel.launches, kernel.rows, kernel.barriers)
     sess = dep.serve(params, round_batch=4)
-    assert kernel.launches == before + spans  # the warm-up call
-    assert sess._step.launches_per_replay == spans
+    # the warm-up call
+    assert (kernel.launches, kernel.rows, kernel.barriers) == (
+        before[0] + spans, before[1] + n_rows, before[2] + n_barriers)
+    step = sess._step
+    assert (step.launches_per_replay, step.rows_per_replay,
+            step.barriers_per_replay) == (spans, n_rows, n_barriers)
     for x in xs:
         sess.submit(x)
     res = sess.results()
     rounds = -(-sum(sizes) // 4)
-    assert kernel.launches == before + spans * (1 + rounds)
+    assert (kernel.launches, kernel.rows, kernel.barriers) == (
+        before[0] + spans * (1 + rounds), before[1] + n_rows * (1 + rounds),
+        before[2] + n_barriers * (1 + rounds))
     assert sess.compile_count == 1
     for (_t, y), x in zip(res, xs):
         assert y.device.type == "cuda"

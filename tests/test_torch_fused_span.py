@@ -24,6 +24,7 @@ from repro_torch.kernels.fused_span.ops import (fused_span, fused_span_ref,
                                                 span_kernel_scratch_elems)
 from repro_torch.models import cnn, zoo
 from repro_torch.runtime import span_engine
+from test_torch_cuda import CASES as CUDA_CASES
 
 C, P = "conv", "pool"
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -262,9 +263,12 @@ def test_launch_geometry_tiles_rows_once(name, cluster):
             kc = layer.k ** 2 * t.bk if t.window else t.bk
             assert 1 <= t.ks <= kc // 4
             assert t.ks * (twp // 4) * (t.tc // 4) <= kernel.THREADS
-            assert t.smem >= t.stages * kernel._stage_bytes(
-                twp, t.tc, layer.k, layer.stride, t.bk, t.window)
-            assert t.smem >= t.ks * twp * t.tc * 4
+            stage = kernel._stage_bytes(twp, t.tc, layer.k, layer.stride,
+                                        t.bk, t.window)
+            red = t.ks * twp * t.tc * 4
+            # a row's K-split sums share its last chunk's stage, or follow
+            # the stages where they do not fit one
+            assert t.smem == t.stages * stage + (red if red > stage else 0)
             if t.window:  # channel groups of 4, fewer values than im2col
                 assert layer.in_ch % 4 == 0
                 assert (twp - 1) * layer.stride + layer.k < twp * layer.k
@@ -304,3 +308,124 @@ def test_cluster_sizes_pin_is_validated(monkeypatch, sizes):
     with pytest.raises(ValueError, match="CLUSTER_SIZES"):
         kernel._span_plan(net, 0, 1, (), 1, (), torch.float32,
                           torch.device("cpu"))
+
+
+def _group_replay(net, a, b, spill, out_rows):
+    """Replay SPAN(a, b)'s schedule as the kernel runs it: each input
+    arrival, then each (step, map) group's rows back to back, with one
+    cluster barrier after the group. Asserts what makes that barrier
+    enough: no row of a group reads the map the group writes, nor a ring
+    slot another row of the group writes, and every row it reads is still
+    in its ring. Returns the groups' sizes."""
+    sched = closure.span_schedule(net, a, b, spill=spill, out_rows=out_rows)
+    caps, n_maps = sched.ring_caps, b - a + 1
+    table = sched.slot_table()
+    ring = {}  # (map offset, slot) -> the row it holds
+    sizes = []
+    for t, step in enumerate(sched.steps):
+        blk = sched.arrivals[t]
+        if blk >= 0:
+            for g in range(blk * sched.in_rows,
+                           min((blk + 1) * sched.in_rows,
+                               net.map_shape(a)[0])):
+                ring[(0, g % caps[0])] = g
+        slot = 0
+        for off in range(1, n_maps):
+            group = list(step[off - 1])
+            # the kernel takes the group as its map's leading slots
+            seg = table[t][slot:slot + sched.slots[off - 1]]
+            assert seg == group + [-1] * (len(seg) - len(group))
+            slot += sched.slots[off - 1]
+            if not group:
+                continue
+            sizes.append(len(group))
+            layer = net.layers[a + off - 1]
+            h_in = net.map_shape(a + off - 1)[0]
+            h_out = net.map_shape(a + off)[0]
+            writes = {}
+            for r in group:
+                reads = [(off - 1, rr) for rr in
+                         range(r * layer.stride - layer.padding,
+                               r * layer.stride - layer.padding + layer.k)
+                         if 0 <= rr < h_in]
+                for src, dst in net.residual_edges:
+                    if dst == a + off and src >= a:
+                        h_s = net.map_shape(src)[0]
+                        reads.append((src - a, min(r * max(h_s // h_out, 1),
+                                                   h_s - 1)))
+                for m, rr in reads:
+                    assert m < off
+                    assert (m, rr % caps[m]) not in writes
+                    assert ring.get((m, rr % caps[m])) == rr
+                if off < n_maps - 1:
+                    assert (off, r % caps[off]) not in writes
+                    writes[(off, r % caps[off])] = r
+            ring.update(writes)
+    return sizes
+
+
+@pytest.mark.parametrize("out_rows", [1, 2])
+@pytest.mark.parametrize("name,specs,hw,ch,edges,span,_t", CASES,
+                         ids=[c[0] for c in CASES])
+def test_one_barrier_per_group_is_enough(name, specs, hw, ch, edges, span,
+                                         _t, out_rows):
+    """Each (step, map) group of every case's schedule can run its rows
+    back to back behind one cluster barrier (:func:`_group_replay`), and
+    ``span_counts`` counts its rows and those barriers."""
+    net, _j, _p, _m, (a, b, spill, _src) = span_inputs(specs, hw, ch,
+                                                        edges, span)
+    sizes = _group_replay(net, a, b, spill, out_rows)
+    sched = closure.span_schedule(net, a, b, spill=spill, out_rows=out_rows)
+    arrivals = sum(blk >= 0 for blk in sched.arrivals)
+    assert kernel.span_counts(sched) == (sum(sizes), len(sizes) + arrivals)
+
+
+@pytest.mark.parametrize("name,span,want", [
+    ("resnet18", (0, 12), (532, 159)), ("resnet18", (12, 15), (35, 28)),
+    ("resnet18", (15, 16), (7, 14)), ("alexnet", (0, 8), (167, 49))])
+def test_span_counts_of_the_benchmark_plans(name, span, want):
+    """Rows and cluster barriers an image of the benchmark plans' spans:
+    a barrier per arrival and per (step, map) group, so a span of one-row
+    groups keeps one a row and arrival. ResNet-18's plan goes from 630
+    barriers an image (one a row and arrival) to 229, 2.57 rows a
+    barrier, and AlexNet's from 175 to 49, 3.41."""
+    net, spans = _geometry_spans(name)
+    rows = barriers = arrivals = 0
+    for a, b in spans:
+        spill = span_engine.span_spills(net, [c for c in (a, b)
+                                              if 0 < c < net.n_layers], a, b)
+        sched = closure.span_schedule(net, a, b, spill=spill)
+        n_rows, n_barriers = kernel.span_counts(sched)
+        n_arrivals = sum(blk >= 0 for blk in sched.arrivals)
+        if max(_group_replay(net, a, b, spill, 1)) == 1:
+            assert n_barriers == n_rows + n_arrivals
+        if (a, b) == span:
+            assert (n_rows, n_barriers) == want
+        rows, barriers = rows + n_rows, barriers + n_barriers
+        arrivals += n_arrivals
+    assert (rows, barriers, rows + arrivals) == {
+        "resnet18": (588, 229, 630), "alexnet": (167, 49, 175)}[name]
+
+
+@pytest.mark.parametrize("out_rows", [1, 2])
+@pytest.mark.parametrize("cluster", kernel.CLUSTER_SIZES)
+@pytest.mark.parametrize("name", ["resnet-groups-64", "wide-group"])
+def test_cuda_group_cases_hold_long_and_wide_groups(name, cluster,
+                                                    out_rows):
+    """The GPU parity cases written for row groups have what they are for:
+    ``resnet-groups-64`` a group of 8 rows or more, ``wide-group`` one
+    whose rows hold more outputs of one CTA than its 16 x 256 tile."""
+    _n, specs, hw, ch, edges, span = {c[0]: c for c in CUDA_CASES}[name]
+    net = chain(name, specs, in_h=hw, in_w=hw, in_ch=ch,
+                residual_edges=edges)
+    a, b = span or (0, net.n_layers)
+    _group_replay(net, a, b, (), out_rows)
+    sched = closure.span_schedule(net, a, b, out_rows=out_rows)
+    geom = kernel.span_geometry(net, a, b, cluster)
+    widest = max(len(step[off - 1]) * geom.tiles[off].tw * geom.tiles[off].tc
+                 for step in sched.steps for off in range(1, b - a + 1))
+    longest = max(len(ops) for step in sched.steps for ops in step)
+    if name == "resnet-groups-64":
+        assert longest >= 8
+    else:
+        assert widest > kernel.THREADS * 16
