@@ -116,6 +116,15 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    under ``torch.profiler`` (host operations, the device's idle share).
    Each path's record times its spans on one round's work (a round of 8;
    a ring slot of 2) as in phase 4.
+4g. Path ``vggnet``: VGG-19's body (``zoo.vggnet()``, 16 3x3 convs and
+   five 2x2 stride-2 pools) planned at 3,145,728 elements, ten spans
+   (cuts ``VGG_CUTS``), 8 images at 224x224 with He-scaled weights from
+   ``--seed``: one ``Deployment.run`` (10 launches, output against the
+   cuDNN oracle within 1e-3 x max|oracle|, ``matches_prediction``), then
+   each span's kernel against its plain version on the oracle's boundary
+   maps (1e-3 x max|plain|), timed as in phase 4 against plain, cuDNN
+   layer by layer and the bound, with each launch's rows, barriers and
+   staged weight bytes.
 
 Then the LM serving path, Llama-3.2-1B at its full published width
 (16 layers x d_model 2048, 32/8 heads of 64, d_ff 8192, vocab 128,256;
@@ -427,6 +436,9 @@ LM_PATH = "llama3.2-1b-serve"
 # ResNet-18's capacity (elements), and under each policy at that capacity
 # (policy, cuts, bytes moved per image) as the planner predicts them
 RES_CAPACITY = 3_145_728
+# VGG-19's cuts at that capacity (ten spans)
+VGG_CUTS = [6, 11, 12, 13, 14, 16, 17, 18, 19]
+VGG_PATH = "vggnet"
 POLICY_CASES = [("int8", [12, 15, 16, 17], 551_936),
                 ("bf16", [12, 16], 652_288)]
 # a session's submits: 17 images, rounds of 8, 7 masked lanes in the last
@@ -872,13 +884,13 @@ def policy_paths(torch, occam, kernel, span_plain_call, compare, time_span,
                                  f"{plan.boundaries}, routes {routes}")
         dep = deps[policy] = plan.place().compile()
         rec = paths[f"resnet18-{policy}"] = new_record()
-        kernel.launches = 0
+        kernel.counts.reset()
         y = dep.run(res_params, xs8)
         torch.cuda.synchronize()
-        rec["launches"] = kernel.launches
-        if kernel.launches != plan.n_spans:
-            raise AssertionError(f"resnet18 {policy}: {kernel.launches} "
-                                 f"launches")
+        rec["launches"] = kernel.counts.launches
+        if kernel.counts.launches != plan.n_spans:
+            raise AssertionError(f"resnet18 {policy}: "
+                                 f"{kernel.counts.launches} launches")
         rep = dep.report()
         measured = rep.measured_bytes / rep.images
         if not (rep.matches_prediction and rep.matches_prediction_bytes) \
@@ -938,21 +950,22 @@ def sessions(torch, kernel, compare, paths, fp32_dep, int8_dep, res_params,
         path = f"{base}-session"
         rec = paths[path] = new_record()
         spans = dep.plan.n_spans
-        kernel.launches = 0
+        kernel.counts.reset()
         sess = dep.serve(res_params, round_batch=8)
         tickets = [sess.submit(x) for x in reqs]
         res = sess.results()
         sess.sync()
-        rec["launches"] = kernel.launches
+        rec["launches"] = kernel.counts.launches
         rounds = sess.serving_stats().rounds_served
         # the warm-up call before the capture launches once; every replay
         # adds the launches the capture recorded
-        if (sess.compile_count, rounds, sess._step.launches_per_replay,
-                kernel.launches) != (1, 3, spans, spans * (1 + rounds)):
+        if (sess.compile_count, rounds, sess._step.per_replay.launches,
+                kernel.counts.launches) != (1, 3, spans,
+                                            spans * (1 + rounds)):
             raise AssertionError(
                 f"{path}: {sess.compile_count} captures, {rounds} rounds, "
-                f"{sess._step.launches_per_replay} launches a replay, "
-                f"{kernel.launches} launches")
+                f"{sess._step.per_replay.launches} launches a replay, "
+                f"{kernel.counts.launches} launches")
         if [t.uid for t, _ in res] != [t.uid for t in tickets] or \
                 [int(y.shape[0]) for _, y in res] != list(SESSION_SUBMITS):
             raise AssertionError(f"{path}: results out of submit order")
@@ -968,7 +981,7 @@ def sessions(torch, kernel, compare, paths, fp32_dep, int8_dep, res_params,
         round_ms = time_ms(torch, lambda: sess._step(sess.params, xs8))
         timing = rep.timing
         print(f"{path}: {rounds} rounds of 8 (7 masked lanes in the last), "
-              f"1 CUDA-graph capture, {sess._step.launches_per_replay} "
+              f"1 CUDA-graph capture, {sess._step.per_replay.launches} "
               f"launches a replay, {rec['launches']} launches (warm-up + "
               f"replays); results in "
               f"submit order, each equal bit for bit to Deployment.run; "
@@ -1043,14 +1056,14 @@ def frontier_phase(torch, occam, kernel, span_plain_call, compare,
     # -- every candidate on the kernel: the counted runs ------------------
     rec = paths["resnet18-frontier"] = new_record()
     deps = [c.deploy(device="cuda") for c in frontier]
-    kernel.launches = 0
+    kernel.counts.reset()
     ys = [dep.run(res_params, xs8) for dep in deps]
     torch.cuda.synchronize()
-    rec["launches"] = kernel.launches
+    rec["launches"] = kernel.counts.launches
     want = sum(len(pallas_spans(c)) for c in frontier)
-    if kernel.launches != want:
-        raise AssertionError(f"frontier runs: {kernel.launches} launches, "
-                             f"not {want}")
+    if kernel.counts.launches != want:
+        raise AssertionError(f"frontier runs: {kernel.counts.launches} "
+                             f"launches, not {want}")
     timed = set()
     for i, (c, dep, y) in enumerate(zip(frontier, deps, ys)):
         pol = c.plan.quant
@@ -1093,10 +1106,10 @@ def frontier_phase(torch, occam, kernel, span_plain_call, compare,
     plan = dep.plan
     stages = plan_span_stages(plan.net, plan.partition, routes=dep.routes)
     n_kernel = len(pallas_spans(fast))
-    kernel.launches = 0
+    kernel.counts.reset()
     prof = dep.profile(res_params, iters=5)
     torch.cuda.synchronize()
-    prof_launches = kernel.launches
+    prof_launches = kernel.counts.launches
     if prof_launches != n_kernel * 6:
         raise AssertionError(f"profile: {prof_launches} launches, not "
                              f"{n_kernel} x 6")
@@ -1194,7 +1207,7 @@ def frontier_phase(torch, occam, kernel, span_plain_call, compare,
     for s in (sess, low_sess, high_sess):
         s.close()
     torch.cuda.synchronize()
-    crec["launches"] = kernel.launches
+    crec["launches"] = kernel.counts.launches
     # checks after the count is read: runs made to compare do not count
     if high_sess.deployment is not dep or high_sess.compile_count != 1 \
             or dep._steps[8].builds != 1:
@@ -1261,14 +1274,14 @@ def stap_phase(torch, occam, kernel, span_plain_call, compare, time_span,
 
     # -- the counted run ------------------------------------------------
     rec = paths[STAP_PATH] = new_record()
-    kernel.launches = 0
+    kernel.counts.reset()
     y = dep.run(res_params, xs)
     torch.cuda.synchronize()
-    rec["launches"] = kernel.launches
+    rec["launches"] = kernel.counts.launches
     n_mb = STAP_IMAGES // STAP_MICROBATCH
-    if kernel.launches != plan.n_spans * n_mb:
-        raise AssertionError(f"stap run: {kernel.launches} launches, not "
-                             f"{plan.n_spans} x {n_mb}")
+    if kernel.counts.launches != plan.n_spans * n_mb:
+        raise AssertionError(f"stap run: {kernel.counts.launches} launches, "
+                             f"not {plan.n_spans} x {n_mb}")
     err, scale = compare("stap run", y, want, rel=1e-3)
     vs_single = float((y - y_single).abs().max())
     pr = dep.pipeline(STAP_IMAGES).report()
@@ -1291,12 +1304,12 @@ def stap_phase(torch, occam, kernel, span_plain_call, compare, time_span,
     # -- a sum-packed ring session ----------------------------------------
     sdep = plan.place(packing="sum", **kw).compile(device="cuda:0")
     offs = np.cumsum((0,) + SESSION_SUBMITS)
-    before = kernel.launches
+    before = kernel.counts.launches
     sess = sdep.serve(res_params, round_batch=8)
     tickets = [sess.submit(xs[a:b]) for a, b in zip(offs[:-1], offs[1:])]
     res = sess.results()
     torch.cuda.synchronize()
-    s_launches = kernel.launches - before
+    s_launches = kernel.counts.launches - before
     got = torch.cat([v for _t, v in res])
     srep = sess.report()
     if [t.uid for t, _ in res] != [t.uid for t in tickets] or \
@@ -1464,6 +1477,66 @@ def stap_phase(torch, occam, kernel, span_plain_call, compare, time_span,
     return sdep
 
 
+def vggnet_phase(torch, occam, kernel, span_plain_call, compare, time_span,
+                 rng, dev) -> dict:
+    """Phase 4g: VGG-19's ten spans at batch 8 (path ``vggnet``); returns
+    the path's record."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.models import cnn, zoo
+    from repro_torch.runtime import span_engine
+
+    net = zoo.vggnet()
+    plan = occam.plan(net, RES_CAPACITY)
+    if plan.boundaries != VGG_CUTS:
+        raise AssertionError(f"vggnet cuts {plan.boundaries}")
+    params = convert.params_from_numpy(he_params(net, rng), dev)
+    xs = convert.array_from_numpy(
+        rng.standard_normal((8, 224, 224, 3), np.float32), dev)
+    maps = cnn.reference_forward(params, xs, net, collect=True)
+    rec = new_record()
+    dep = plan.place().compile()
+    if [r.route for r in dep.routes] != ["pallas"] * len(plan.routes):
+        raise AssertionError(f"vggnet routes {dep.routes}")
+    kernel.counts.reset()
+    y = dep.run(params, xs)
+    torch.cuda.synchronize()
+    counts = kernel.counts.copy()
+    rec["launches"] = counts.launches
+    if counts.launches != len(plan.routes):
+        raise AssertionError(f"vggnet run: {counts.launches} launches")
+    err, scale = compare("vggnet run", y, maps[-1], rel=1e-3)
+    rep = dep.report()
+    if not rep.matches_prediction:
+        raise AssertionError(f"vggnet traffic {rep}")
+    print(f"vggnet run, 8 images: {counts.launches} launches, output "
+          f"{tuple(y.shape)}, max|run-oracle| {err:.3e} (max|oracle| "
+          f"{scale:.3e}), matches_prediction True; per image "
+          f"{counts.rows} rows, {counts.barriers} barriers, "
+          f"{counts.weight_bytes / 1e6:.3f} MB of weights staged")
+    for r in plan.routes:
+        a, b = r.start, r.end
+        kw = dict(srcs={}, spill=span_engine.span_spills(
+            net, plan.boundaries, a, b))
+        got, _ = kernel.span_cuda_call(maps[a], params[a:b], net, a, b,
+                                       **kw)
+        want, _ = span_plain_call(maps[a], params[a:b], net, a, b, **kw)
+        err, scale = compare(f"vggnet span ({a}, {b})", got, want,
+                             rel=1e-3)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        shape = dict(kernel.last_launch)
+        print(f"vggnet span ({a}, {b}) batch 8: max|kernel-plain| "
+              f"{err:.3e} (max|plain| {scale:.3e}); per image "
+              f"{shape['rows']} rows, {shape['barriers']} barriers, "
+              f"{shape['weight_bytes'] / 1e6:.3f} MB of weights staged")
+        time_span(VGG_PATH, net, params, maps[a], a, b, kw, rec)
+    print(f"vggnet ten spans at batch 8: kernel {rec['ms']:.3f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms, cuDNN {rec['library_ms']:.3f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms")
+    return rec
+
+
 def async_phase(torch, occam, kernel, span_plain_call, compare, time_span,
                 paths, resnet, res_params, rng, smi, frontier, stap_dep):
     """Phase 4f: the async serving engine on the card. Path
@@ -1562,11 +1635,11 @@ def async_phase(torch, occam, kernel, span_plain_call, compare, time_span,
     step = dep._steps.get(8)
     builds0 = step.builds if step is not None else 0
     rec = paths[ASYNC_PATH] = new_record()
-    kernel.launches = 0
+    kernel.counts.reset()
     eng = frontier.serve(res_params, objective="throughput", device="cuda",
                          audit="error", **serve_kw)
     outs, secs, desc, rep = run_engine(eng)
-    rec["launches"] = kernel.launches
+    rec["launches"] = kernel.counts.launches
     # checks after the count is read: runs made to compare do not count
     rounds = desc["metrics"]["total_rounds"]
     captures = dep._steps[8].builds - builds0
@@ -1625,10 +1698,10 @@ def async_phase(torch, occam, kernel, span_plain_call, compare, time_span,
     ring = sdep.ring(STAP_MICROBATCH)
     trace0 = ring.trace_count
     srec = paths[STAP_ASYNC_PATH] = new_record()
-    kernel.launches = 0
+    kernel.counts.reset()
     seng = occam.AsyncEngine(sdep, res_params, **serve_kw)
     s_outs, s_secs, s_desc, s_rep = run_engine(seng)
-    srec["launches"] = kernel.launches
+    srec["launches"] = kernel.counts.launches
     s_rounds = s_desc["session"]["rounds_served"]
     stages = sum(r.route == "pallas" for r in sdep.routes)
     # every round full (64 = 8 x 8): round_batch / microbatch live slots
@@ -3523,7 +3596,7 @@ def examples_phase(torch, compare, time_span) -> list:
             return originals[name](*args, **kw)
         return call
 
-    counters = (span_kernel, fkernel, skernel)
+    counters = (span_kernel.counts, fkernel, skernel)
     runs = [("quickstart", quickstart.main, []),
             ("occam_cnn_pipeline", occam_cnn_pipeline.main, []),
             ("serve_pipeline", serve_pipeline.main, []),
@@ -3629,26 +3702,26 @@ def benchmarks_phase(torch, compare, time_span, dev) -> dict:
 
     def counted(name, fn):
         def call(*args, **kw):
-            before = kernel.launches
+            before = kernel.counts.launches
             out = fn(*args, **kw)
             torch.cuda.synchronize()
-            launched[name] = kernel.launches - before
+            launched[name] = kernel.counts.launches - before
             return out
         return call
 
     originals = run.BENCHES
     run.BENCHES = [(name, counted(name, fn), note, on_device)
                    for name, fn, note, on_device in originals]
-    kernel.launches = 0
+    kernel.counts.reset()
     try:
         derived = run.main(["--device", str(dev)])
-        before = kernel.launches
+        before = kernel.counts.launches
         smoke.main(["--device", str(dev)])
         torch.cuda.synchronize()
-        launched["smoke"] = kernel.launches - before
+        launched["smoke"] = kernel.counts.launches - before
     finally:
         run.BENCHES = originals
-    total = kernel.launches
+    total = kernel.counts.launches
     print(f"{BENCH_PATH}: fused-span launches per twin {launched}; "
           f"{total} in all")
     for name in BENCH_ON_KERNEL:
@@ -3876,6 +3949,46 @@ def main() -> int:
                                    msg=lambda m: f"{name}: {m}")
         return err, None
 
+    # phase 4's times of one span
+    oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
+    span_ptxas = fp32_ptxas(libs["fused_span"].with_suffix(".log"),
+                            "fused_span_kernelIfE")
+
+    def time_span(net_name, net, params, xs, a, b, kw, rec):
+        """Phase 4's times of one span launch, its plain version and the
+        cuDNN oracle (CUDA events, median of 5), its bound and launch
+        shape, added into the path's record ``rec``."""
+        batch = xs.shape[0]
+        stored = {a: xs, **kw["srcs"]}
+        k_ms = time_ms(torch, lambda: kernel.span_cuda_call(
+            xs, params[a:b], net, a, b, **kw))
+        p_ms = time_ms(torch, lambda: span_plain_call(
+            xs, params[a:b], net, a, b, **kw))
+        o_ms = time_ms(torch, lambda: oracle.run(params, net, a, b, stored,
+                                                 kw["spill"]))
+        macs, nbytes, bound, bound_by = span_cost(
+            net, a, b, batch, kw["spill"], tuple(kw["srcs"]))
+        shape = kernel.last_launch
+        if net.name == "resnet18" and batch == 8 and shape["ctas"] < 128:
+            raise AssertionError(f"resnet18 span ({a}, {b}) at batch 8 "
+                                 f"launched {shape['ctas']} CTAs")
+        print(f"time {net_name} span ({a}, {b}) batch {batch}: kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, cuDNN oracle "
+              f"{o_ms:.3f} ms; {macs / 1e9:.3f} GMAC in range, "
+              f"{nbytes / 1e6:.3f} MB, bound {bound:.4f} ms ({bound_by}), "
+              f"kernel at {bound / k_ms * 100:.2f}% of bound")
+        print(f"  launch {net_name} span ({a}, {b}): {shape['clusters']} "
+              f"clusters x {shape['cluster']} CTAs = {shape['ctas']} CTAs, "
+              f"{shape['threads']} threads per CTA, {shape['smem']} bytes of "
+              f"dynamic shared memory, {shape['resident_clusters']} "
+              f"clusters resident at once; ptxas fp32: {span_ptxas}")
+        rec["ms"] += k_ms
+        rec["plain_ms"] += p_ms
+        rec["library_ms"] += o_ms
+        rec["bound_ms"] += bound
+        rec["t_ops"] += 2 * macs / FP32_TFLOPS * 1e3
+        rec["t_mem"] += nbytes / HBM_BYTES_PER_S * 1e3
+
     # ---- 2. kernel vs plain, on the card ---------------------------------
     small = [(name, chain(name, specs, in_h=hw, in_w=hw, in_ch=ch), 0, None)
              for name, specs, hw, ch in SMALL_CASES]
@@ -4007,14 +4120,14 @@ def main() -> int:
     routes = [r.route for r in dep.routes]
     if routes != ["pallas"] * 5:
         raise AssertionError(f"resnet18 routes {routes}")
-    kernel.launches = 0
+    kernel.counts.reset()
     for n in (8, 1, 5):
-        before = kernel.launches
+        before = kernel.counts.launches
         y = dep.run(res_params, xs_res[:n])
         torch.cuda.synchronize()
-        if kernel.launches - before != 5:
+        if kernel.counts.launches - before != 5:
             raise AssertionError(f"request of {n}: "
-                                 f"{kernel.launches - before} launches")
+                                 f"{kernel.counts.launches - before} launches")
         if tuple(y.shape) != (n, 7, 7, 512):
             raise AssertionError(f"output shape {tuple(y.shape)}")
         err, scale = compare(f"resnet18 request of {n}", y, res_maps[-1][:n],
@@ -4022,7 +4135,7 @@ def main() -> int:
         print(f"resnet18 request of {n}: 5 launches, output "
               f"{tuple(y.shape)}, max|run-oracle| {err:.3e} "
               f"(max|oracle| {scale:.3e})")
-    paths["resnet18"]["launches"] = kernel.launches
+    paths["resnet18"]["launches"] = kernel.counts.launches
     rep = dep.report()
     if not rep.matches_prediction:
         raise AssertionError(f"resnet18 traffic {rep}")
@@ -4031,11 +4144,11 @@ def main() -> int:
           f"{rep.offchip_elems:.0f}: matches_prediction True")
     alex_dep = occam.load_plan(
         str(ROOT / "examples" / "alexnet.plan.json")).place().compile()
-    kernel.launches = 0
+    kernel.counts.reset()
     y = alex_dep.run(alex_params, xs_alex)
     torch.cuda.synchronize()
-    paths["alexnet"]["launches"] = kernel.launches
-    if kernel.launches != 1 or [r.route for r in
+    paths["alexnet"]["launches"] = kernel.counts.launches
+    if kernel.counts.launches != 1 or [r.route for r in
                                 alex_dep.routes] != ["pallas"]:
         raise AssertionError("alexnet plan did not run on the kernel")
     err, scale = compare("alexnet plan", y, alex_maps[-1], rel=1e-3)
@@ -4047,45 +4160,6 @@ def main() -> int:
           f"matches_prediction True")
 
     # ---- 4. times -----------------------------------------------------------
-    oracle = registry.get_engine(span_engine.ROUTE_ORACLE)
-    span_ptxas = fp32_ptxas(libs["fused_span"].with_suffix(".log"),
-                            "fused_span_kernelIfE")
-
-    def time_span(net_name, net, params, xs, a, b, kw, rec):
-        """Phase 4's times of one span launch, its plain version and the
-        cuDNN oracle (CUDA events, median of 5), its bound and launch
-        shape, added into the path's record ``rec``."""
-        batch = xs.shape[0]
-        stored = {a: xs, **kw["srcs"]}
-        k_ms = time_ms(torch, lambda: kernel.span_cuda_call(
-            xs, params[a:b], net, a, b, **kw))
-        p_ms = time_ms(torch, lambda: span_plain_call(
-            xs, params[a:b], net, a, b, **kw))
-        o_ms = time_ms(torch, lambda: oracle.run(params, net, a, b, stored,
-                                                 kw["spill"]))
-        macs, nbytes, bound, bound_by = span_cost(
-            net, a, b, batch, kw["spill"], tuple(kw["srcs"]))
-        shape = kernel.last_launch
-        if net.name == "resnet18" and batch == 8 and shape["ctas"] < 128:
-            raise AssertionError(f"resnet18 span ({a}, {b}) at batch 8 "
-                                 f"launched {shape['ctas']} CTAs")
-        print(f"time {net_name} span ({a}, {b}) batch {batch}: kernel "
-              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, cuDNN oracle "
-              f"{o_ms:.3f} ms; {macs / 1e9:.3f} GMAC in range, "
-              f"{nbytes / 1e6:.3f} MB, bound {bound:.4f} ms ({bound_by}), "
-              f"kernel at {bound / k_ms * 100:.2f}% of bound")
-        print(f"  launch {net_name} span ({a}, {b}): {shape['clusters']} "
-              f"clusters x {shape['cluster']} CTAs = {shape['ctas']} CTAs, "
-              f"{shape['threads']} threads per CTA, {shape['smem']} bytes of "
-              f"dynamic shared memory, {shape['resident_clusters']} "
-              f"clusters resident at once; ptxas fp32: {span_ptxas}")
-        rec["ms"] += k_ms
-        rec["plain_ms"] += p_ms
-        rec["library_ms"] += o_ms
-        rec["bound_ms"] += bound
-        rec["t_ops"] += 2 * macs / FP32_TFLOPS * 1e3
-        rec["t_mem"] += nbytes / HBM_BYTES_PER_S * 1e3
-
     for net_name, net, params, maps, a, b, kw in span_args:
         time_span(net_name, net, params, maps[a], a, b, kw, paths[net_name])
     xs8 = convert.array_from_numpy(xs_res, dev)
@@ -4116,6 +4190,10 @@ def main() -> int:
                           time_span, paths, resnet, res_params, rng, smi)
     async_phase(torch, occam, kernel, span_plain_call, compare, time_span,
                 paths, resnet, res_params, rng, smi, frontier, stap_dep)
+    paths[VGG_PATH] = vggnet_phase(torch, occam, kernel, span_plain_call,
+                                   compare, time_span, rng, dev)
+    gc.collect()  # VGG-19's maps go before the LM paths
+    torch.cuda.empty_cache()
 
     flash_rec = lm_serving(torch, args.seed, compare,
                            libs["flash_attention"].with_suffix(".log"))

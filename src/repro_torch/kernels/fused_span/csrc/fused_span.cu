@@ -436,7 +436,8 @@ __device__ __forceinline__ void conv_group(
     }
   };
   // B[kk][n] = the weight row of the chunk's kk-th K index, columns c0 + n;
-  // zero past K and past the tile's nc
+  // zero past K and past the tile's nc. kernel.py's launch_counts models
+  // these copies (weight_bytes): a change to them changes it too
   auto load_b = [&](int c, float* bs) {
     const int k0 = c * bk;
     for (int qi = tid < b_rows * b_lanes ? tid % b_lanes : per_row;

@@ -35,17 +35,20 @@ note.
 The rings live in a device-memory workspace of exactly
 ``batch x schedule.scratch_elems()`` elements, allocated here with
 ``torch.empty``; the kernel launches on the current stream, does not
-synchronise, and ``launches`` counts its launches. ``rows`` and
-``barriers`` add up, launch by launch, the rows one image of the span
-produces and the cluster barriers it waits at (:func:`span_counts`): one
-per input arrival and one per (step, map) group of rows, so ``rows /
-barriers`` says how many rows a barrier covers. A span the geometry
-cannot serve (a kernel wider than 32, a row tile over 16 x 256 outputs,
-no cluster the device can place) raises; there is no fallback.
+synchronise, and ``counts`` (one :class:`Counts` record) counts its
+launches and adds up, launch by launch, what one image of the span costs
+(:func:`launch_counts`): the rows it produces and the cluster barriers it
+waits at (:func:`span_counts`: one per input arrival and one per (step,
+map) group of rows, so ``rows / barriers`` says how many rows a barrier
+covers), and the bytes of weights its CTAs stage into shared memory. A
+span the geometry cannot serve (a kernel wider than 32, a row tile over
+16 x 256 outputs, no cluster the device can place) raises; there is no
+fallback.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -55,14 +58,41 @@ from repro_torch.core.graph import NetSpec
 
 from .. import _build
 
-# kernel launches since import (or since the caller last reset it), and
-# the rows and cluster barriers of one image of each launch's span
-launches = 0
-rows = 0
-barriers = 0
+
+@dataclass
+class Counts:
+    """What launches of the kernel cost: ``launches``, and added launch by
+    launch, what one image of each launch's span costs (as
+    :func:`launch_counts` gives it): ``rows`` produced, cluster
+    ``barriers`` waited at and ``weight_bytes`` of weights staged into
+    shared memory."""
+    launches: int = 0
+    rows: int = 0
+    barriers: int = 0
+    weight_bytes: int = 0
+
+    def add(self, other: "Counts") -> None:
+        for name in self.__dataclass_fields__:
+            setattr(self, name, getattr(self, name) + getattr(other, name))
+
+    def __sub__(self, other: "Counts") -> "Counts":
+        return Counts(*(getattr(self, name) - getattr(other, name)
+                        for name in self.__dataclass_fields__))
+
+    def copy(self) -> "Counts":
+        return dataclasses.replace(self)
+
+    def reset(self, to: "Counts | None" = None) -> None:
+        """Set every count to ``to``'s, or to 0."""
+        for name in self.__dataclass_fields__:
+            setattr(self, name, 0 if to is None else getattr(to, name))
+
+
+# the kernel's counts since import (or since the caller last reset them)
+counts = Counts()
 # the shape of the last launch: clusters, CTAs per cluster, threads, bytes
 # of dynamic shared memory, how many clusters the device holds at once,
-# and an image's rows and cluster barriers
+# and one image's rows, cluster barriers and weight bytes
 last_launch: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -238,6 +268,31 @@ def span_counts(schedule: closure.SpanSchedule) -> tuple[int, int]:
     return sum(map(len, groups)), len(groups) + arrivals
 
 
+def launch_counts(net: NetSpec, a: int, b: int,
+                  schedule: closure.SpanSchedule,
+                  geom: SpanGeometry) -> Counts:
+    """What one image of a launch of SPAN(a, b) costs, as :class:`Counts`
+    (``launches`` 1).
+
+    ``weight_bytes`` is a host model of the copies ``load_b`` in
+    ``csrc/fused_span.cu`` issues, and has to change with them: for every
+    row of a conv map the schedule produces, each CTA with a tile of the
+    row copies its C_out slice of the (k * k * C_in, C_out) fp32 weight
+    matrix, K deep, into shared memory (copies past K or past the slice
+    are zero fills and move nothing; the biases, staged once a group, are
+    left out)."""
+    n_rows, n_barriers = span_counts(schedule)
+    weight = 0
+    for off, layer in enumerate(net.layers[a:b], start=1):
+        if layer.kind != "conv":
+            continue
+        staged = sum(nc for _x0, nx, _c0, nc in geom.tiles[off].tiles(
+            geom.cluster, layer.out_w, layer.out_ch) if nx > 0 and nc > 0)
+        produced = sum(len(step[off - 1]) for step in schedule.steps)
+        weight += produced * layer.k * layer.k * layer.in_ch * staged * 4
+    return Counts(1, n_rows, n_barriers, weight)
+
+
 def _descriptor(net: NetSpec, a: int, b: int,
                 schedule: closure.SpanSchedule, spill: tuple[int, ...],
                 src_keys: tuple[int, ...],
@@ -321,7 +376,7 @@ def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
                out_rows: int, src_keys: tuple[int, ...], dtype: torch.dtype,
                device: torch.device):
     """(workspace elems per image, geometry, launch shared memory, resident
-    clusters, device descriptor, :func:`span_counts`) of one span, built
+    clusters, device descriptor, :func:`launch_counts`) of one span, built
     once per (span, spill, tile height, dtype, device, cluster sizes) and
     cached: a launch then does no schedule or geometry work on the host.
 
@@ -353,8 +408,9 @@ def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
         resident = _cluster_choice[query]
         if resident >= 1:
             desc = torch.tensor(words, dtype=torch.int32, device=device)
-            plan = _plans[key] = (schedule.scratch_elems(), geom, smem,
-                                  resident, desc, span_counts(schedule))
+            plan = _plans[key] = (
+                schedule.scratch_elems(), geom, smem, resident, desc,
+                launch_counts(net, a, b, schedule, geom))
             return plan
     raise RuntimeError(f"span ({a}, {b}): the device places no cluster of "
                        f"{' or '.join(map(str, sizes))} CTAs with "
@@ -411,7 +467,6 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     tensor, an unsupported dtype, a span outside the launch geometry, or a
     failed build or launch.
     """
-    global launches, rows, barriers
     spill = tuple(sorted(set(spill)))
     src_keys = crossing_sources(net, a, b, srcs)
     if not xs.is_cuda:
@@ -449,7 +504,7 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     spills = [torch.empty((batch,) + net.map_shape(m), dtype=xs.dtype,
                           device=dev) for m in spill]
     plan = _span_plan(net, a, b, spill, out_rows, src_keys, xs.dtype, dev)
-    per_image, geom, smem, resident, desc, (n_rows, n_barriers) = plan
+    per_image, geom, smem, resident, desc, cost = plan
     workspace = torch.empty(batch * per_image, dtype=xs.dtype, device=dev)
     launch = _launcher()
     with torch.cuda.device(dev):
@@ -462,14 +517,12 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
                     smem, stream)
     if rc != 0:
         raise RuntimeError(f"fused-span kernel launch failed: CUDA error {rc}")
-    launches += 1
-    rows += n_rows
-    barriers += n_barriers
+    counts.add(cost)
     last_launch.clear()
     last_launch.update(clusters=batch, cluster=geom.cluster,
                        ctas=batch * geom.cluster, threads=THREADS,
-                       smem=smem, resident_clusters=resident, rows=n_rows,
-                       barriers=n_barriers)
+                       smem=smem, resident_clusters=resident, rows=cost.rows,
+                       barriers=cost.barriers, weight_bytes=cost.weight_bytes)
     return out, dict(zip(spill, spills))
 
 

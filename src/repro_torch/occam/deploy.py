@@ -421,18 +421,17 @@ class _RoundStep:
     last bound copies them into the step's buffers before its replay.
 
     A replay launches the kernels without passing through their
-    wrappers, so the step adds to the fused-span kernel's counts of
-    launches, rows and barriers what the capture recorded, once per
-    replay.
+    wrappers, so the step adds to the fused-span kernel's ``counts`` what
+    the capture recorded (``per_replay``, a ``Counts`` record: the
+    launches, and per image of the round the rows, barriers and weight
+    bytes), once per replay.
     """
 
     def __init__(self, deployment: Deployment, round_batch: int):
         self.deployment = deployment
         self.round_batch = round_batch
         self.builds = 0
-        self.launches_per_replay = 0
-        self.rows_per_replay = 0
-        self.barriers_per_replay = 0
+        self.per_replay = span_kernel.Counts()
         self.graph: torch.cuda.CUDAGraph | None = None
         self._params: list[dict] | None = None
         self._bound = None
@@ -466,8 +465,7 @@ class _RoundStep:
             self._execute(self._params, self._x)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = (span_kernel.launches, span_kernel.rows,
-                  span_kernel.barriers)
+        before = span_kernel.counts.copy()
         # a dead step's graph, freed by the cyclic garbage collector in
         # the middle of this capture, would invalidate it (destroying a
         # graph is illegal while a stream captures): collect first, then
@@ -487,11 +485,8 @@ class _RoundStep:
             if collecting:
                 gc.enable()
             # a capture records launches, it makes none
-            self.launches_per_replay = span_kernel.launches - before[0]
-            self.rows_per_replay = span_kernel.rows - before[1]
-            self.barriers_per_replay = span_kernel.barriers - before[2]
-            (span_kernel.launches, span_kernel.rows,
-             span_kernel.barriers) = before
+            self.per_replay = span_kernel.counts - before
+            span_kernel.counts.reset(before)
         self.graph = graph
 
     def __call__(self, params: list[dict], xs: torch.Tensor) -> torch.Tensor:
@@ -511,9 +506,7 @@ class _RoundStep:
         self._x[:n].copy_(xs)
         self._x[n:].zero_()
         self.graph.replay()
-        span_kernel.launches += self.launches_per_replay
-        span_kernel.rows += self.rows_per_replay
-        span_kernel.barriers += self.barriers_per_replay
+        span_kernel.counts.add(self.per_replay)
         return self._y.clone()
 
 
@@ -943,7 +936,11 @@ class Session:
             with trace.timed("occam.session.round", self.timers) as sp:
                 if sp:
                     sp.set(round=self._rounds_served, lanes=n_valid,
-                           tickets=tuple(uid for uid, _take in segs))
+                           tickets=tuple(uid for uid, _take in segs),
+                           boundary_bytes=self._per_image.total_bytes)
+                    per = self._step.per_replay
+                    if per.launches:
+                        sp.set(weight_bytes=per.weight_bytes)
                 lanes = self._step(self.params, xs)
             self._deliver(segs, lanes)
             return

@@ -48,7 +48,11 @@ The spans, with their attributes:
   ``resolved``.
 * ``occam.session.submit``: ``Session.submit``; ``ticket``, ``images``.
 * ``occam.session.round``: a single-device round (copy in, padding,
-  replay, clone); ``round``, ``lanes``, ``tickets``. A STAP ring's tick:
+  replay, clone); ``round``, ``lanes``, ``tickets``; per image lane of
+  the round, ``boundary_bytes`` moved to and from device memory (the
+  deployment's per-image transfer profile) and, where the round launches
+  the fused-span kernel, ``weight_bytes`` staged into shared memory (the
+  kernel's ``Counts`` of the round's launches). A STAP ring's tick:
   ``round``, ``valid_slots``.
 
 and the record ``occam.engine.request``, one a request when its ticket

@@ -330,7 +330,7 @@ def test_autoscale_sequence_on_gpu():
     r_high = 10.0 * max(c.throughput for c in frontier)
     dep = fast.deploy(device="cuda")
     assert fast.deploy(device=torch.device("cuda")) is dep
-    before = kernel.launches
+    before = kernel.counts.launches
     sess = dep.serve(params, round_batch=4)
     xs = torch.from_numpy(_images(net, 4)).cuda()
     sess.submit(xs)
@@ -341,7 +341,7 @@ def test_autoscale_sequence_on_gpu():
     (_t, y_low), = low_sess.results()
     high = low_sess.scale(arrival_rate=r_high)
     (_t, y), = sess.results()
-    assert kernel.launches > before
+    assert kernel.counts.launches > before
     assert high.deployment is dep and high.compile_count == 1
     assert dep._steps[4].builds == 1
     assert torch.equal(y, dep.run(params, xs))

@@ -16,6 +16,7 @@ that has only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``. Without a visible GPU each test skips itself.
 """
 import copy
+import dataclasses
 import time
 
 import numpy as np
@@ -82,6 +83,12 @@ CASES = [
     # K-chunk's stage
     ("wide-group", [(C, 3, 1, 1, 256)] + [(C, 3, 2, 1, 16)] * 3, 64, 4, (),
      None),
+    # VGG-19's first block: 224-wide rows of 64 channels (14,336 outputs a
+    # row), ending in a 2x2 stride-2 pool
+    ("vgg-224-64-pool", [(C, 3, 1, 1, 64), (C, 3, 1, 1, 64),
+                         (P, 2, 2, 0, 0)], 224, 3, (), None),
+    # one of VGG-19's 512 -> 512 convs on a 28-row map: K = 4,608
+    ("vgg-k4608-28", [(C, 3, 1, 1, 512)], 28, 512, (), None),
 ]
 
 
@@ -136,16 +143,23 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, name, specs, hw, ch,
     srcs = {s: maps[s] for (s, t) in edges if s < a < t <= b}
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     for out_rows in (1, 2):
-        before = (kernel.launches, kernel.rows, kernel.barriers)
+        before = kernel.counts.copy()
         got, got_sp = kernel.span_cuda_call(maps[a], params[a:b], net, a, b,
                                             out_rows=out_rows, srcs=srcs,
                                             spill=spill)
-        n_rows, n_barriers = kernel.span_counts(closure.span_schedule(
-            net, a, b, spill=spill, out_rows=out_rows))
-        assert (kernel.launches, kernel.rows, kernel.barriers) == (
-            before[0] + 1, before[1] + n_rows, before[2] + n_barriers)
-        assert (kernel.last_launch["rows"],
-                kernel.last_launch["barriers"]) == (n_rows, n_barriers)
+        sched = closure.span_schedule(net, a, b, spill=spill,
+                                      out_rows=out_rows)
+        n_rows, n_barriers = kernel.span_counts(sched)
+        cost = kernel.launch_counts(
+            net, a, b, sched, kernel.span_geometry(
+                net, a, b, kernel.last_launch["cluster"]))
+        assert (cost.launches, cost.rows, cost.barriers) == (1, n_rows,
+                                                             n_barriers)
+        assert kernel.counts - before == cost
+        assert {k: kernel.last_launch[k] for k in (
+            "rows", "barriers", "weight_bytes")} == {
+            "rows": n_rows, "barriers": n_barriers,
+            "weight_bytes": cost.weight_bytes}
         want, want_sp = span_plain_call(maps[a], params[a:b], net, a, b,
                                         out_rows=out_rows, srcs=srcs,
                                         spill=spill)
@@ -172,11 +186,11 @@ def test_deployment_on_gpu_matches_cpu(cuda):
     gpu = plan.place().compile()
     cpu = plan.place().compile(device="cpu")
     assert gpu.device.type == "cuda"
-    before = kernel.launches
+    before = kernel.counts.launches
     got = gpu.run(params, xs)
     kernel_spans = sum(r.route == "pallas" for r in gpu.routes)
     assert kernel_spans > 0
-    assert kernel.launches == before + kernel_spans
+    assert kernel.counts.launches == before + kernel_spans
     want = cpu.run(params, xs)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert gpu.report().matches_prediction
@@ -242,26 +256,24 @@ def test_session_on_gpu_equals_run(cuda, policy):
     assert spans > 0
     sizes = [4, 1, 5, 3]
     xs = [rng.standard_normal((n, 16, 16, 3), np.float32) for n in sizes]
-    # an eager run's rows and barriers, which a replay must add as well
-    before = (kernel.rows, kernel.barriers)
+    # an eager run's counts, which a replay must add as well
+    before = kernel.counts.copy()
     dep.run(params, xs[0])
-    n_rows, n_barriers = kernel.rows - before[0], kernel.barriers - before[1]
-    assert n_barriers > 0
-    before = (kernel.launches, kernel.rows, kernel.barriers)
+    eager = kernel.counts - before
+    assert eager.launches == spans and eager.barriers > 0
+    assert eager.weight_bytes > 0
+    before = kernel.counts.copy()
     sess = dep.serve(params, round_batch=4)
     # the warm-up call
-    assert (kernel.launches, kernel.rows, kernel.barriers) == (
-        before[0] + spans, before[1] + n_rows, before[2] + n_barriers)
+    assert kernel.counts - before == eager
     step = sess._step
-    assert (step.launches_per_replay, step.rows_per_replay,
-            step.barriers_per_replay) == (spans, n_rows, n_barriers)
+    assert step.per_replay == eager
     for x in xs:
         sess.submit(x)
     res = sess.results()
     rounds = -(-sum(sizes) // 4)
-    assert (kernel.launches, kernel.rows, kernel.barriers) == (
-        before[0] + spans * (1 + rounds), before[1] + n_rows * (1 + rounds),
-        before[2] + n_barriers * (1 + rounds))
+    assert kernel.counts - before == kernel.Counts(
+        *(v * (1 + rounds) for v in dataclasses.astuple(eager)))
     assert sess.compile_count == 1
     for (_t, y), x in zip(res, xs):
         assert y.device.type == "cuda"
@@ -302,7 +314,7 @@ def test_frontier_serve_on_gpu_equals_run(cuda):
     frontier = occam.autoplan(net, occam.Fleet(chips=1, vmem_elems=700))
     sizes = [4, 1, 5, 3, 4, 2]
     xs = [rng.standard_normal((n, 16, 16, 3), np.float32) for n in sizes]
-    before = kernel.launches
+    before = kernel.counts.launches
     eng = frontier.serve(params, device="cuda:0", round_batch=4,
                          max_wait_ms=2.0, metrics_window_ms=600_000.0,
                          audit="error")
@@ -313,7 +325,7 @@ def test_frontier_serve_on_gpu_equals_run(cuda):
     torch.cuda.synchronize()
     rounds = desc["metrics"]["total_rounds"]
     assert rounds == desc["session"]["rounds_served"] >= -(-sum(sizes) // 4)
-    assert kernel.launches - before == spans * (1 + rounds)
+    assert kernel.counts.launches - before == spans * (1 + rounds)
     for y, x in zip(outs, xs):
         assert y.device == torch.device("cuda", 0)
         assert torch.equal(y, dep.run(params, x))
@@ -448,11 +460,11 @@ def test_pipeline_on_one_gpu_equals_single_run(cuda, name, packing):
     dep = plan.place(replicas=rect if packing == "rect" else packed,
                      microbatch=2, packing=packing).compile(device="cuda:0")
     assert {d.type for d in dep.mesh.flat} == {"cuda"}
-    before = kernel.launches
+    before = kernel.counts.launches
     if packing == "rect":
         y = dep.run(params, xs)
         torch.cuda.synchronize()
-        assert kernel.launches - before == stages * 4
+        assert kernel.counts.launches - before == stages * 4
         assert dep.report().matches_prediction
     else:
         sess = dep.serve(params)
@@ -464,7 +476,7 @@ def test_pipeline_on_one_gpu_equals_single_run(cuda, name, packing):
         assert sess.report().matches_prediction
         # one round of 12 slots of 2: 4 live slots at every stage
         assert sess.round_batch == 12
-        assert kernel.launches - before == stages * 4
+        assert kernel.counts.launches - before == stages * 4
     assert y.device == torch.device("cuda", 0)
     torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
 
@@ -1062,9 +1074,9 @@ def test_dryrun_cell_on_gpu_equals_its_meta_record(cuda, kind):
 def test_quickstart_example_on_gpu_launches_the_fused_span(cuda):
     from repro_torch.examples import quickstart
 
-    before = kernel.launches
+    before = kernel.counts.launches
     out = quickstart.main([])
-    assert kernel.launches > before
+    assert kernel.counts.launches > before
     assert out["routes"] == ["pallas"] * len(out["routes"])
     assert out["measured_elems"] == out["predicted_transfers"]
     assert out["max_abs_err"] <= 1e-5
