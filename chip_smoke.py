@@ -1500,12 +1500,20 @@ def vggnet_phase(torch, occam, kernel, span_plain_call, compare, time_span,
     if [r.route for r in dep.routes] != ["pallas"] * len(plan.routes):
         raise AssertionError(f"vggnet routes {dep.routes}")
     kernel.counts.reset()
+    tally = kernel.tma_tally(dev)
     y = dep.run(params, xs)
     torch.cuda.synchronize()
     counts = kernel.counts.copy()
+    tally = kernel.tma_tally(dev) - tally
     rec["launches"] = counts.launches
     if counts.launches != len(plan.routes):
         raise AssertionError(f"vggnet run: {counts.launches} launches")
+    # the device's sum of the bytes the CTAs staged by TMA, against the
+    # host model: every weight byte of VGG-19 arrives by TMA
+    if not tally == 8 * counts.tma_bytes == 8 * counts.weight_bytes:
+        raise AssertionError(f"vggnet TMA bytes: device {tally}, host "
+                             f"{8 * counts.tma_bytes} of "
+                             f"{8 * counts.weight_bytes}")
     err, scale = compare("vggnet run", y, maps[-1], rel=1e-3)
     rep = dep.report()
     if not rep.matches_prediction:
@@ -1514,7 +1522,9 @@ def vggnet_phase(torch, occam, kernel, span_plain_call, compare, time_span,
           f"{tuple(y.shape)}, max|run-oracle| {err:.3e} (max|oracle| "
           f"{scale:.3e}), matches_prediction True; per image "
           f"{counts.rows} rows, {counts.barriers} barriers, "
-          f"{counts.weight_bytes / 1e6:.3f} MB of weights staged")
+          f"{counts.weight_bytes / 1e6:.3f} MB of weights staged, "
+          f"{counts.tma_bytes / 1e6:.3f} MB of them by TMA (the device "
+          f"counted {tally / 8e6:.3f})")
     for r in plan.routes:
         a, b = r.start, r.end
         kw = dict(srcs={}, spill=span_engine.span_spills(

@@ -47,10 +47,10 @@
 //   takes 229 barriers an image instead of one a row and arrival (630).
 // - A conv row is an implicit GEMM, A[W tile, K = k*k*C_in] times B[K,
 //   C_out tile] (the HWIO weights are B in K-major order), in K-chunks
-//   staged in shared memory by cp.async, two to four chunks deep; the
-//   chunks of a group's rows are one stream, so the next row's first
-//   chunks load while a row's last is multiplied and its tile finished. A
-//   is staged as the CTA's input window (k rows x the tile's columns x a
+//   staged in shared memory two to four chunks deep; the chunks of a
+//   group's rows are one stream, so the next row's first chunks load while
+//   a row's last is multiplied and its tile finished. A is staged by
+//   cp.async as the CTA's input window (k rows x the tile's columns x a
 //   chunk of input channels, each value once, a tap table giving each K
 //   index's offset) where C_in is a multiple of 4, else as im2col rows
 //   through registers (converted to fp32, padding taps zeroed). Each
@@ -60,14 +60,37 @@
 //   add the groups' tiles through shared memory at the row's end. Bias,
 //   ReLU, residual adds (fp32, before the cast) and the stores run in
 //   that epilogue.
+// - B, most of a chunk's bytes past the stems, arrives by the Tensor
+//   Memory Accelerator: one thread issues one tensor copy a chunk (a box
+//   of tc outputs x bk rows, x k*k taps in window mode, of the weights
+//   seen as a (k*k, C_in, C_out) or (K, C_out) tensor; a box edge is at
+//   most 256, so a 512-deep chunk takes two copies, or two a tap), which
+//   lands exactly as B[kk][tc] and completes on the stage's mbarrier. The
+//   copy engine forms the addresses and zero-fills K past C_in (or K) and
+//   channels past C_out, so no thread spends instructions or load slots
+//   on B: with cp.async, all 256 threads issued ~2,300 16-byte copies a
+//   chunk. The tensor maps are encoded on the host (kernel.py caches them
+//   by the weights' addresses) and travel as __grid_constant__ kernel
+//   parameters. A stage's mbarrier sits in static shared memory,
+//   initialised once a CTA, and everything else the copy needs is formed
+//   where it is issued: at 128 registers, values kept live across the
+//   chunk loop spill (barriers placed after each map's stages and set up
+//   per group lost the gain at one image). B goes by cp.async where
+//   C_out % 4 != 0 (a row stride TMA cannot take) or a tile is wider than
+//   a box.
 // - A CTA reads only its own C_out slice of each layer's weights, through
 //   shared memory in K-chunks; every row of every image reads it again
 //   from L2. The TPU kept the filters VMEM-resident across the batch.
-//   Weights resident across images, tensor cores (wgmma), TMA, and rings
-//   in shared or distributed shared memory are later work.
+//   Weights resident across images, tensor cores (wgmma), A's window by
+//   TMA (it needs a swizzled layout in place of its padded rows), its
+//   multicast to the CTAs that share its columns, and rings in shared or
+//   distributed shared memory are later work.
+#include <cuda.h>  // CUtensorMap and the encoder's types; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
@@ -77,12 +100,15 @@ constexpr int kMaxConv = 128;
 constexpr int kMaxSrc = 8;
 constexpr int kMaxSpill = 8;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxStages = 4;  // K-chunks held in shared memory at once
+constexpr int kBoxMax = 256;  // longest edge of a TMA box
+constexpr int kAlign = 32;    // floats: TMA lands B 128-byte aligned
 
 // Descriptor layout (int32), written by kernel.py::_descriptor.
 // Dynamic shared memory holds, in order: a copy of the descriptor up to
 // its slot table (ints), the current step's row of the slot table at int
 // offset H_ROW, a conv tile's biases at float offset H_BIAS, and from
-// float offset H_STAGE the K-chunks of conv_group.
+// float offset H_STAGE (128-byte aligned) the K-chunks of conv_group.
 enum Header {
   H_NMAPS, H_INROWS, H_NSTEPS, H_TOTSLOTS, H_NRES, H_CLUSTER,
   H_ROW, H_BIAS, H_STAGE, H_MAPS, H_RES, H_SLOTS, H_ARRIVALS, H_TABLE, H_LEN
@@ -91,18 +117,20 @@ enum Header {
 // CTA's tile of the row (columns x channels), M_NCT the channel tiles per
 // row; for a conv row, M_MODE how A is staged (0 im2col, 1 window), M_BK
 // the K indices (im2col) or input channels (window) of a chunk, a power of
-// two >= 4, M_KS the K-split groups and M_STAGES the chunks held in shared
-// memory (2-4).
+// two >= 4, M_KS the K-split groups, M_STAGES the chunks held in shared
+// memory (2-4) and M_TMA 1 where B arrives by TMA (SpanPtrs::b_map).
 enum MapField {
   M_KIND, M_K, M_STRIDE, M_PAD, M_H, M_W, M_C, M_CAP, M_RING,
   M_RES0, M_NRES, M_SPILL, M_CONV, M_TW, M_TC, M_NCT, M_BK, M_KS,
-  M_STAGES, M_MODE, M_LEN
+  M_STAGES, M_MODE, M_TMA, M_LEN
 };
 // One record per residual edge ending in the span, in net order.
 // R_SRC_KIND 0: the source is ring R_SRC; 1: it is srcs operand R_SRC.
 enum ResField { R_SRC_KIND, R_SRC, R_H, R_W, R_C, R_LEN };
 
 struct SpanPtrs {
+  CUtensorMap b_map[kMaxConv];  // conv i's weights, where its M_TMA is 1
+  unsigned long long* tma_tally;  // bytes staged by TMA, summed over CTAs
   const void* x;
   void* out;
   void* ws;
@@ -156,6 +184,59 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers in shared memory (shared-window addresses), one arrival a phase
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+// the one arrival of the phase, which then also waits for `bytes`
+__device__ __forceinline__ void mbar_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// orders the generic-proxy shared-memory writes before it (this thread's,
+// and other threads' behind a barrier) before this thread's later TMA
+// (async-proxy) writes to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// TMA tile copies of a box at coordinates (x, y[, z]) (innermost first) of
+// `map` into shared memory at dst; completes on mbarrier bar
+__device__ __forceinline__ void tma_load2(float* dst, const CUtensorMap* map,
+                                          unsigned bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(static_cast<unsigned>(
+          __cvta_generic_to_shared(dst))),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(x),
+      "r"(y)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load3(float* dst, const CUtensorMap* map,
+                                          unsigned bar, int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(static_cast<unsigned>(
+          __cvta_generic_to_shared(dst))),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(x),
+      "r"(y), "r"(z)
+      : "memory");
 }
 
 // Every thread of every CTA of the cluster; writes before it are visible
@@ -280,26 +361,33 @@ __device__ __forceinline__ void finish_row(
 //
 // Each row's K = k*k*C_in is walked in chunks, and the group's rows are
 // one stream of chunks: shared memory holds M_STAGES of them, each an A
-// part then B[kc][tc] (kc K indices of the chunk), and M_STAGES - 1
-// chunks are in flight while one is multiplied, the next row's first
-// chunks while a row's last is multiplied and its tile finished. A is
-// staged one of two ways (M_MODE):
+// part padded to 128 bytes then B[kc][tc] (kc K indices of the chunk),
+// the stage padded to 128 bytes, and M_STAGES - 1 chunks are in flight
+// while one is multiplied, the next row's first chunks while a row's last
+// is multiplied and its tile finished. Where M_TMA is 1, B arrives by one
+// TMA copy (two, or two a tap, for a 512-deep chunk) on the stage's
+// mbarrier, bars[s]; bit s of `phase` is the parity of its next
+// completion. A is staged one of two ways (M_MODE):
 // - im2col: a chunk is M_BK consecutive K indices, A[twp][M_BK + 4];
 // - window: a chunk is every tap over M_BK input channels, and A is the
 //   CTA's input window W[k][(twp - 1) * stride + k][M_BK + 4], each input
 //   value staged once instead of once per tap; a tap table gives a K
 //   index's window offset.
 // A row's K-split sums go to the stage of its last chunk (after the
-// stages, where they do not fit one) for finish_row. The stream keeps its
-// row, chunk and stage as counters, so a chunk costs no division or
+// stages, where they do not fit one) for finish_row. The issuing thread
+// adds the in-range bytes of its TMA copies to *tma_sum. The stream keeps
+// its row, chunk and stage as counters, so a chunk costs no division or
 // modulo: on the H100 that made ResNet-18's last spans, 16 small chunks a
-// row, 7% faster at one image.
+// row, 7% faster at one image. Every value only B's staging needs is
+// formed where it is used: at 128 registers a value kept live across the
+// chunk loop spills.
 template <typename T>
 __device__ __forceinline__ void conv_group(
     const int* __restrict__ maps, const int* __restrict__ res, const int off,
     const int n_maps, const int* rows, const int n_rows, const int n,
     const int x0, const int nx, const int c0, const int nc, T* ws, T* out,
-    const SpanPtrs& p, float* sbias, float* sm, int* tapoff) {
+    const SpanPtrs& p, float* sbias, float* sm, int* tapoff,
+    unsigned long long* tma_sum, unsigned long long* bars, unsigned& phase) {
   const int* mm = maps + off * M_LEN;
   const int* mp = maps + (off - 1) * M_LEN;
   const int k = mm[M_K], stride = mm[M_STRIDE], pad = mm[M_PAD];
@@ -307,19 +395,29 @@ __device__ __forceinline__ void conv_group(
   const int cap_in = mp[M_CAP], c_out = mm[M_C];
   const int tc = mm[M_TC], twp = (mm[M_TW] + 3) & ~3;
   const int bk = mm[M_BK], ks = mm[M_KS], stages = mm[M_STAGES];
-  const bool window = mm[M_MODE] == 1;
+  const bool window = mm[M_MODE] == 1, tma = mm[M_TMA] == 1;
   const T* ring_in = ws + mp[M_RING];
-  const float* __restrict__ wt = p.w[mm[M_CONV]];
   const int lg_bk = __ffs(bk) - 1;
   const int cstr = bk + 4;  // row stride of A (both modes)
   const int wcols = (twp - 1) * stride + k;
-  const int a_size = window ? k * wcols * cstr : twp * cstr;
+  const int a_size =
+      ((window ? k * wcols * cstr : twp * cstr) + kAlign - 1) & -kAlign;
   const int kc = window ? k * k * bk : bk;  // K indices per chunk
-  const int st_size = a_size + kc * tc;
+  const int st_size = (a_size + kc * tc + kAlign - 1) & -kAlign;
   const int kdim = k * k * c_in;
   const int n_chunks = window ? (c_in + bk - 1) / bk : (kdim + bk - 1) / bk;
   const bool red_in_stage = ks * twp * tc <= st_size;
   const int tid = threadIdx.x;
+  auto bar = [&](int s) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(bars + s));
+  };
+  if (tma && tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+        reinterpret_cast<unsigned long long>(&p.b_map[mm[M_CONV]])));
+    // the previous group's generic writes to these bytes are ordered
+    // before this group's TMA copies (behind the cluster barrier)
+    fence_proxy_async();
+  }
   if (window) {  // read after chunk 0's __syncthreads
     for (int t = tid; t < k * k; t += kThreads) {
       const int dy = t / k;
@@ -337,10 +435,6 @@ __device__ __forceinline__ void conv_group(
   // ring; otherwise A goes through registers (converted, zero-padded).
   const bool vec_a = sizeof(T) == 4 && (c_in & 3) == 0 &&
                      (reinterpret_cast<unsigned long long>(ring_in) & 15) == 0;
-  const bool vec_b = (c_out & 3) == 0;
-  const int per_row = vec_b ? tc >> 2 : tc;
-  const int b_lanes = min(per_row, kThreads);
-  const int b_rows = kThreads / b_lanes;
 
   // im2col: A[m][kk] = ring row (r*stride - pad + dy), column (x0+m)*stride
   // - pad + dx, channel ci, where k0 + kk = (dy * k + dx) * C_in + ci. K
@@ -436,9 +530,16 @@ __device__ __forceinline__ void conv_group(
     }
   };
   // B[kk][n] = the weight row of the chunk's kk-th K index, columns c0 + n;
-  // zero past K and past the tile's nc. kernel.py's launch_counts models
-  // these copies (weight_bytes): a change to them changes it too
+  // zero past K and past the tile's nc. By cp.async, all threads: where
+  // M_TMA is 0 (C_out % 4 != 0, or a tile wider than a box). 16-byte
+  // copies serve the second case; a 4-byte-only path made the TMA path
+  // 2-4% slower through ptxas's register allocation
   auto load_b = [&](int c, float* bs) {
+    const float* __restrict__ wt = p.w[mm[M_CONV]];
+    const bool vec_b = (c_out & 3) == 0;
+    const int per_row = vec_b ? tc >> 2 : tc;
+    const int b_lanes = min(per_row, kThreads);
+    const int b_rows = kThreads / b_lanes;
     const int k0 = c * bk;
     for (int qi = tid < b_rows * b_lanes ? tid % b_lanes : per_row;
          qi < per_row; qi += b_lanes) {
@@ -464,16 +565,47 @@ __device__ __forceinline__ void conv_group(
       }
     }
   };
-  // chunk c of row j into stage s; one cp.async group, maybe empty
+  // the same B by TMA, issued by one thread, on mbarrier bar: boxes of tc
+  // channels x bk rows (x k*k taps) of the map's tensor, 256 rows at most
+  // (so one box a tap for a 512-deep window chunk). The copy engine zero
+  // fills past C_in or K and past C_out (the tile's nc), and the barrier
+  // counts every byte of the boxes. kernel.py's launch_counts models the
+  // in-range bytes (weight_bytes, tma_bytes): a change here changes it
+  auto load_b_tma = [&](int c, float* bs, unsigned b) {
+    const CUtensorMap* map = &p.b_map[mm[M_CONV]];
+    const int k0 = c * bk, bkb = min(bk, kBoxMax);
+    int rows_in = 0;  // in-range K rows copied
+    mbar_expect(b, kc * tc * 4);
+    if (!window) {
+      for (int h = 0; h < bk; h += kBoxMax) {
+        tma_load2(bs + h * tc, map, b, c0, k0 + h);
+        rows_in += max(0, min(bkb, kdim - k0 - h));
+      }
+    } else if (bk <= kBoxMax) {
+      tma_load3(bs, map, b, c0, k0, 0);
+      rows_in = max(0, min(bk, c_in - k0)) * k * k;
+    } else {
+      for (int t = 0; t < k * k; ++t) {
+        for (int h = 0; h < bk; h += kBoxMax) {
+          tma_load3(bs + (t * bk + h) * tc, map, b, c0, k0 + h, t);
+          rows_in += max(0, min(kBoxMax, c_in - k0 - h));
+        }
+      }
+    }
+    *tma_sum += 4ull * rows_in * nc;
+  };
+  // chunk c of row j into stage s: B's TMA copy on the stage's barrier
+  // first, then one cp.async group, maybe empty
   auto fetch = [&](int j, int c, int s) {
     if (j < n_rows) {
       float* as = sm + s * st_size;
+      if (tma && tid == 0) load_b_tma(c, as + a_size, bar(s));
       if (window) {
         load_window(rows[j], c * bk, as);
       } else {
         load_im2col(rows[j], c * bk, as);
       }
-      load_b(c, as + a_size);
+      if (!tma) load_b(c, as + a_size);
     }
     cp_async_commit();
   };
@@ -500,6 +632,10 @@ __device__ __forceinline__ void conv_group(
       cp_async_wait<1>();
     } else {
       cp_async_wait<2>();
+    }
+    if (tma) {  // the chunk's B
+      mbar_wait(bar(s), (phase >> s) & 1);
+      phase ^= 1u << s;
     }
     __syncthreads();  // the chunk is in; the last one's stage is free
     {  // the chunk stages - 1 ahead, into that stage
@@ -563,6 +699,9 @@ __device__ __forceinline__ void conv_group(
       }
     }
     __syncthreads();
+    // the sums' generic writes are ordered before the TMA copy that next
+    // overwrites this stage, issued by this thread
+    if (tma && red_in_stage && tid == 0) fence_proxy_async();
     // the next chunk's __syncthreads frees `red` before a fetch rewrites it
     finish_row<T, true>(maps, res, off, n_maps, rows[row], n, x0, nx, c0, nc,
                         ws, out, p, sbias, red, ks);
@@ -579,7 +718,8 @@ __device__ __forceinline__ void produce_group(
     const int* __restrict__ maps, const int* __restrict__ res, const int off,
     const int n_maps, const int* rows, const int n_rows, const int n,
     const int rank, T* ws, T* out, const SpanPtrs& p, float* sbias,
-    float* sm, int* tapoff) {
+    float* sm, int* tapoff, unsigned long long* tma_sum,
+    unsigned long long* bars, unsigned& phase) {
   const int* mm = maps + off * M_LEN;
   const int w_out = mm[M_W], c_out = mm[M_C];
   const int nct = mm[M_NCT], tw = mm[M_TW], tc = mm[M_TC];
@@ -588,7 +728,7 @@ __device__ __forceinline__ void produce_group(
   if (nx <= 0 || nc <= 0) return;  // a CTA with no tile in this map
   if (mm[M_KIND] == 0) {
     conv_group<T>(maps, res, off, n_maps, rows, n_rows, n, x0, nx, c0, nc,
-                  ws, out, p, sbias, sm, tapoff);
+                  ws, out, p, sbias, sm, tapoff, tma_sum, bars, phase);
   } else {
     for (int j = 0; j < n_rows; ++j) {
       finish_row<T, false>(maps, res, off, n_maps, rows[j], n, x0, nx, c0,
@@ -604,9 +744,22 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_span_kernel(const int* __restrict__ desc,
                       const __grid_constant__ SpanPtrs p) {
-  extern __shared__ float4 smem4[];
+  extern __shared__ __align__(128) float4 smem4[];
   __shared__ int tapoff[kMaxTaps];
+  __shared__ unsigned long long tma_sum;  // thread 0's TMA bytes
+  // K-chunk stage s's mbarrier, for every group: initialised once, at
+  // fixed addresses, and with `phase` carried from group to group (every
+  // copy a group issues, it consumes)
+  __shared__ unsigned long long bars[kMaxStages];
+  unsigned phase = 0;
   int* sd = reinterpret_cast<int*>(smem4);
+  if (threadIdx.x == 0) {
+    tma_sum = 0;
+    for (int i = 0; i < kMaxStages; ++i) {
+      mbar_init(static_cast<unsigned>(__cvta_generic_to_shared(bars + i)));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   // the descriptor up to its slot table, read once into shared memory: the
   // rows read it again and again
   for (int i = threadIdx.x; i < desc[H_TABLE]; i += blockDim.x) {
@@ -627,6 +780,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   int* srow = sd + sd[H_ROW];
   float* sbias = reinterpret_cast<float*>(smem4) + sd[H_BIAS];
   float* sm = reinterpret_cast<float*>(smem4) + sd[H_STAGE];
+  // TMA lands B 128-byte aligned: the K-chunks' base must be
+  if (static_cast<unsigned>(__cvta_generic_to_shared(sm)) & 127) __trap();
   const int* m0 = maps;
   const int* mb = maps + (n_maps - 1) * M_LEN;
   const int in_elems = m0[M_W] * m0[M_C];
@@ -677,12 +832,14 @@ __global__ void __launch_bounds__(kThreads, 2)
       while (n_rows < slots[off - 1] && srow[slot + n_rows] >= 0) ++n_rows;
       if (n_rows > 0) {  // uniform across the cluster
         produce_group<T>(maps, res, off, n_maps, srow + slot, n_rows, n, rank,
-                         ws, out, p, sbias, sm, tapoff);
+                         ws, out, p, sbias, sm, tapoff, &tma_sum, bars,
+                         phase);
         cluster_sync();
       }
       slot += slots[off - 1];
     }
   }
+  if (threadIdx.x == 0 && tma_sum != 0) atomicAdd(p.tma_tally, tma_sum);
 }
 
 template <typename T>
@@ -749,21 +906,73 @@ extern "C" int occam_fused_span_max_clusters(int dtype, int cluster,
   }
 }
 
+// Encodes into `map` (128 bytes, 64-byte aligned) the TMA tensor map of
+// one conv's fp32 HWIO weights `w` as its B operand: in window mode the
+// (k*k, C_in, C_out) tensor with a box of (tc, min(bk, 256), k*k taps, or
+// 1 where bk > 256), else the (K, C_out) matrix with a box of (tc,
+// min(bk, 256)); extents are the tensor's, so the copy engine zero-fills
+// past them. C_out % 4 == 0, tc <= 256 and a 16-byte-aligned `w` are the
+// caller's. libcuda's cuTensorMapEncodeTiled is found through the
+// runtime's entry-point query, so nothing links libcuda. Returns the
+// CUresult, or -1 where the encoder is not found.
+extern "C" int occam_fused_span_encode_b_map(void* map, const void* w,
+                                             int window, int k, int c_in,
+                                             int c_out, int tc, int bk) {
+  typedef CUresult (*Encode)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      fn = nullptr;
+    }
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (encode == nullptr) return -1;
+  const cuuint64_t row = static_cast<cuuint64_t>(c_out) * 4;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c_out),
+                              static_cast<cuuint64_t>(window ? c_in
+                                                             : k * k * c_in),
+                              static_cast<cuuint64_t>(k * k)};
+  const cuuint64_t strides[2] = {row, row * c_in};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(tc),
+                             static_cast<cuuint32_t>(bk < kBoxMax ? bk
+                                                                  : kBoxMax),
+                             static_cast<cuuint32_t>(bk <= kBoxMax ? k * k
+                                                                   : 1)};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return static_cast<int>(encode(
+      static_cast<CUtensorMap*>(map), CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      window ? 3 : 2, const_cast<void*>(w), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
 // dtype: 0 float32, 1 bfloat16, 2 float16 (activations; weights and biases
 // are float32). One cluster of `cluster` CTAs per image, `smem` bytes of
 // dynamic shared memory each; the descriptor's tiles must be those of
-// this cluster size. Launches on `stream`, does not synchronise, and
-// returns the launch's CUDA error.
+// this cluster size. `b_maps` holds n_conv encoded tensor maps of 128
+// bytes (read where a conv's M_TMA is 1), and the CTAs add the bytes they
+// stage by TMA to *tma_tally. Launches on `stream`, does not synchronise,
+// and returns the launch's CUDA error.
 extern "C" int occam_fused_span_launch(
     int dtype, const void* desc, const void* x, void* out, void* ws,
     long long ws_per_image, const void* const* w, const void* const* bias,
-    int n_conv, const void* const* src, int n_src, void* const* spill,
-    int n_spill, int batch, int cluster, int smem, void* stream) {
+    const void* b_maps, int n_conv, const void* const* src, int n_src,
+    void* const* spill, int n_spill, void* tma_tally, int batch,
+    int cluster, int smem, void* stream) {
   if (n_conv > kMaxConv || n_src > kMaxSrc || n_spill > kMaxSpill ||
       batch < 1 || cluster < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SpanPtrs p = {};
+  memcpy(p.b_map, b_maps, sizeof(CUtensorMap) * n_conv);
+  p.tma_tally = static_cast<unsigned long long*>(tma_tally);
   p.x = x;
   p.out = out;
   p.ws = ws;

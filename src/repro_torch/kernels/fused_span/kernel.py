@@ -28,9 +28,11 @@ an implicit GEMM over K = ``k * k * C_in``, staged through shared memory
 in 2-4 chunks: as the CTA's input window, ``bk`` input channels a chunk,
 where C_in is a multiple of 4 and the window holds fewer values than
 im2col rows; else as im2col rows, ``bk`` K indices a chunk. K is split
-over ``ks`` thread groups when the tile is small. What bounds the kernel
-on the H100 and what the design does about it is in the source's header
-note.
+over ``ks`` thread groups when the tile is small. A chunk's weights (B)
+arrive by one TMA tile copy where C_out is a multiple of 4 (:func:`tma_box`),
+through tensor maps encoded here once per span plan and weight addresses.
+What bounds the kernel on the H100 and what the design does about it is
+in the source's header note.
 
 The rings live in a device-memory workspace of exactly
 ``batch x schedule.scratch_elems()`` elements, allocated here with
@@ -40,7 +42,9 @@ launches and adds up, launch by launch, what one image of the span costs
 (:func:`launch_counts`): the rows it produces and the cluster barriers it
 waits at (:func:`span_counts`: one per input arrival and one per (step,
 map) group of rows, so ``rows / barriers`` says how many rows a barrier
-covers), and the bytes of weights its CTAs stage into shared memory. A
+covers), and the bytes of weights its CTAs stage into shared memory, in
+all and by TMA. The CTAs also add the bytes they stage by TMA to a
+device counter (:func:`tma_tally`), which only tests read. A
 span the geometry cannot serve (a kernel wider than 32, a row tile over
 16 x 256 outputs, no cluster the device can place) raises; there is no
 fallback.
@@ -64,12 +68,13 @@ class Counts:
     """What launches of the kernel cost: ``launches``, and added launch by
     launch, what one image of each launch's span costs (as
     :func:`launch_counts` gives it): ``rows`` produced, cluster
-    ``barriers`` waited at and ``weight_bytes`` of weights staged into
-    shared memory."""
+    ``barriers`` waited at, ``weight_bytes`` of weights staged into
+    shared memory and the part of them staged by TMA, ``tma_bytes``."""
     launches: int = 0
     rows: int = 0
     barriers: int = 0
     weight_bytes: int = 0
+    tma_bytes: int = 0
 
     def add(self, other: "Counts") -> None:
         for name in self.__dataclass_fields__:
@@ -92,7 +97,7 @@ class Counts:
 counts = Counts()
 # the shape of the last launch: clusters, CTAs per cluster, threads, bytes
 # of dynamic shared memory, how many clusters the device holds at once,
-# and one image's rows, cluster barriers and weight bytes
+# and one image's rows, cluster barriers, weight bytes and TMA bytes
 last_launch: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -100,7 +105,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_CONV, MAX_SRC, MAX_SPILL = 128, 8, 8
 
 # field counts of the descriptor records (csrc/fused_span.cu enums)
-_H_LEN, _M_LEN, _R_LEN = 14, 20, 5
+_H_LEN, _M_LEN, _R_LEN = 14, 21, 5
 
 # launch geometry (csrc/fused_span.cu constants)
 THREADS = 256            # threads per CTA (kThreads)
@@ -109,9 +114,13 @@ MAX_K = 32               # widest conv or pool window the geometry takes
 MAX_TAPS = 128           # most taps (k * k) of a window-staged conv
 MAX_BK = 512             # largest K-chunk (a power of two)
 MAX_STAGES = 4           # K-chunks held in shared memory at once
+TMA_BOX_MAX = 256        # longest edge of a TMA box (kBoxMax)
+ALIGN = 32               # floats: TMA lands B 128-byte aligned (kAlign)
+MBARRIER = 8             # bytes of an mbarrier
 SMEM_LIMIT = 232_448     # shared memory a CTA may use on the H100
-# the kernel's static shared memory: the tap table
-STATIC_SMEM = 4 * MAX_TAPS
+# the kernel's static shared memory: the tap table, the TMA byte sum and
+# a K-chunk stage's mbarrier each
+STATIC_SMEM = 4 * MAX_TAPS + 8 + MAX_STAGES * MBARRIER
 # dynamic shared memory per CTA, so two CTAs share an SM's 228 KB; the
 # K-chunks leave DESC_RESERVE of it to the descriptor's copy
 SMEM_BUDGET = 114_688
@@ -122,6 +131,8 @@ CLUSTER_SIZES = (16, 8)
 
 _plans: dict = {}
 _cluster_choice: dict = {}
+# per device, the bytes the CTAs have staged by TMA (int64, on the device)
+_tallies: dict = {}
 
 
 @dataclass(frozen=True)
@@ -158,15 +169,29 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _align(n: int) -> int:
+    return _ceil(n, ALIGN) * ALIGN
+
+
+def _stage_floats(twp: int, tc: int, k: int, stride: int, bk: int,
+                  window: bool) -> tuple[int, int]:
+    """(B's offset, the stage's size) of one K-chunk in shared memory, in
+    fp32 elements: the A part (the window W[k][(twp - 1) * stride + k][bk
+    + 4], or im2col A[twp][bk + 4]) padded to 128 bytes, so that B[kc][tc]
+    (kc = k * k * bk or bk K indices) starts where a TMA copy may land,
+    and the stage padded to 128 bytes, so that the next one does too."""
+    if window:
+        a = k * ((twp - 1) * stride + k) * (bk + MICRO)
+    else:
+        a = twp * (bk + MICRO)
+    kc = k * k * bk if window else bk
+    return _align(a), _align(_align(a) + kc * tc)
+
+
 def _stage_bytes(twp: int, tc: int, k: int, stride: int, bk: int,
                  window: bool) -> int:
-    """One K-chunk in shared memory, fp32: the A part (the window
-    W[k][(twp - 1) * stride + k][bk + 4], or im2col A[twp][bk + 4]) and
-    B[kc][tc], kc = k * k * bk or bk K indices."""
-    if window:
-        wcols = (twp - 1) * stride + k
-        return (k * wcols * (bk + MICRO) + k * k * bk * tc) * 4
-    return (twp * (bk + MICRO) + bk * tc) * 4
+    """One K-chunk in shared memory, in bytes (:func:`_stage_floats`)."""
+    return 4 * _stage_floats(twp, tc, k, stride, bk, window)[1]
 
 
 def row_tile(kind: str, k: int, c_in: int, w: int, c: int,
@@ -258,6 +283,26 @@ def span_geometry(net: NetSpec, a: int, b: int,
     return SpanGeometry(cluster, smem, tuple(tiles))
 
 
+def tma_box(layer, tile: RowTile) -> tuple[int, ...] | None:
+    """The box of one TMA copy of a conv's K-chunk of B, innermost edge
+    first, or None where B goes by ``cp.async`` (and for a pool).
+
+    B arrives by TMA where the weights' rows (C_out fp32) are a multiple
+    of 16 bytes and a tile's ``tc`` channels fit one box edge (256; true
+    of every tile while C_out <= 4,096 in clusters of 16). The box is
+    ``(tc, bk, k * k)`` of the (k * k, C_in, C_out) weights in window
+    mode, ``(tc, bk)`` of the (K, C_out) matrix in im2col mode; an edge
+    over 256 (``bk`` 512) is cut to 256 and the chunk takes two copies
+    (two a tap in window mode, whose box is then one tap deep)."""
+    if layer.kind != "conv" or layer.out_ch % MICRO \
+            or tile.tc > TMA_BOX_MAX:
+        return None
+    bk = min(tile.bk, TMA_BOX_MAX)
+    if tile.window:
+        return (tile.tc, bk, layer.k ** 2 if tile.bk <= TMA_BOX_MAX else 1)
+    return (tile.tc, bk)
+
+
 def span_counts(schedule: closure.SpanSchedule) -> tuple[int, int]:
     """(rows, cluster barriers) of one image of a span's launch: every row
     the schedule produces, and a barrier for each input arrival and each
@@ -274,23 +319,31 @@ def launch_counts(net: NetSpec, a: int, b: int,
     """What one image of a launch of SPAN(a, b) costs, as :class:`Counts`
     (``launches`` 1).
 
-    ``weight_bytes`` is a host model of the copies ``load_b`` in
-    ``csrc/fused_span.cu`` issues, and has to change with them: for every
-    row of a conv map the schedule produces, each CTA with a tile of the
-    row copies its C_out slice of the (k * k * C_in, C_out) fp32 weight
-    matrix, K deep, into shared memory (copies past K or past the slice
-    are zero fills and move nothing; the biases, staged once a group, are
-    left out)."""
+    ``weight_bytes`` is a host model of how ``conv_group`` in
+    ``csrc/fused_span.cu`` stages B, by the TMA boxes of ``load_b_tma``
+    (:func:`tma_box`) or the copies of ``load_b``, and has to change
+    with them: for every row of a conv map the schedule produces, each
+    CTA with a tile of the row stages its C_out slice of the (k * k *
+    C_in, C_out) fp32 weight matrix, K deep, into shared memory. Only
+    in-range bytes count: a box's or a copy's part past K or past the
+    slice is a zero fill and moves nothing, and the biases, staged once a
+    group, are left out. ``tma_bytes`` is the part of ``weight_bytes``
+    staged by TMA boxes, counted the same way, which the CTAs also sum
+    on the device (:func:`tma_tally`)."""
     n_rows, n_barriers = span_counts(schedule)
-    weight = 0
+    weight = tma = 0
     for off, layer in enumerate(net.layers[a:b], start=1):
         if layer.kind != "conv":
             continue
-        staged = sum(nc for _x0, nx, _c0, nc in geom.tiles[off].tiles(
+        tile = geom.tiles[off]
+        staged = sum(nc for _x0, nx, _c0, nc in tile.tiles(
             geom.cluster, layer.out_w, layer.out_ch) if nx > 0 and nc > 0)
         produced = sum(len(step[off - 1]) for step in schedule.steps)
-        weight += produced * layer.k * layer.k * layer.in_ch * staged * 4
-    return Counts(1, n_rows, n_barriers, weight)
+        nbytes = produced * layer.k * layer.k * layer.in_ch * staged * 4
+        weight += nbytes
+        if tma_box(layer, tile) is not None:
+            tma += nbytes
+    return Counts(1, n_rows, n_barriers, weight, tma)
 
 
 def _descriptor(net: NetSpec, a: int, b: int,
@@ -310,7 +363,7 @@ def _descriptor(net: NetSpec, a: int, b: int,
         kind = k = stride = pad = 0
         conv = -1
         edges = []
-        tile = [0] * 7
+        tile = [0] * 8
         if off > 0:
             layer = net.layers[m - 1]
             kind = 0 if layer.kind == "conv" else 1
@@ -319,7 +372,8 @@ def _descriptor(net: NetSpec, a: int, b: int,
                 conv, n_conv = n_conv, n_conv + 1
             edges = [s for (s, t) in net.residual_edges if t == m]
             t = geom.tiles[off]
-            tile = [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages, int(t.window)]
+            tile = [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages, int(t.window),
+                    int(tma_box(layer, t) is not None)]
         cap = schedule.ring_caps[off] if off < n_maps - 1 else 0
         res0 = len(res) // _R_LEN
         for s in edges:
@@ -339,10 +393,11 @@ def _descriptor(net: NetSpec, a: int, b: int,
         offsets.append(pos)
         pos += len(part)
     # shared memory: the descriptor up to its table, the step's table row,
-    # the biases of the widest conv tile, then the K-chunks (4-int aligned)
+    # the biases of the widest conv tile (4-int aligned), then the K-chunks
+    # (128-byte aligned, for TMA)
     row = _ceil(offsets[-1], 4) * 4
     bias = row + _ceil(schedule.total_slots, 4) * 4
-    stage = bias + _ceil(max([t.tc for t in geom.tiles[1:]]), 4) * 4
+    stage = _align(bias + _ceil(max([t.tc for t in geom.tiles[1:]]), 4) * 4)
     header = [n_maps, schedule.in_rows, schedule.n_steps,
               schedule.total_slots, len(res) // _R_LEN, cluster, row, bias,
               stage] + offsets
@@ -372,13 +427,68 @@ def _max_clusters(dtype: int, cluster: int, smem: int,
     return count.value
 
 
+class _BMaps:
+    """The TMA tensor maps of a span's conv weights (128 bytes each, in
+    conv order; zeros where B goes by ``cp.async``). A map holds the
+    weights' address, so the maps are encoded once per set of weight
+    addresses and the last few sets kept: a session's replays and an
+    eager caller's fixed weights do no host work for them."""
+
+    KEEP = 8
+
+    def __init__(self, specs: list):
+        # per conv, (window, k, C_in, C_out, tc, bk) or None
+        self.specs = specs
+        self._by_ptrs: dict = {}
+
+    def get(self, weights: list[torch.Tensor]) -> ctypes.Array:
+        key = tuple(w.data_ptr() for w in weights)
+        maps = self._by_ptrs.pop(key, None)
+        if maps is None:
+            maps = (ctypes.c_ubyte * (128 * max(len(weights), 1)))()
+            encode = _build.library("fused_span").occam_fused_span_encode_b_map
+            if encode.argtypes is None:
+                i = ctypes.c_int
+                encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i, i, i,
+                                   i, i, i]
+                encode.restype = i
+            for n, (spec, w) in enumerate(zip(self.specs, weights)):
+                if spec is not None:
+                    rc = encode(ctypes.addressof(maps) + 128 * n,
+                                w.data_ptr(), *spec)
+                    if rc != 0:
+                        raise RuntimeError(f"encoding conv {n}'s TMA tensor "
+                                           f"map failed: CUresult {rc}")
+        self._by_ptrs[key] = maps
+        if len(self._by_ptrs) > self.KEEP:
+            self._by_ptrs.pop(next(iter(self._by_ptrs)))
+        return maps
+
+
+def tma_tally(device) -> int:
+    """The bytes of weights the kernel's CTAs have staged by TMA on
+    ``device`` since its first span plan there, summed on the device
+    (each CTA adds its in-range box bytes at its end). Reading it
+    synchronises the device: tests and ``chip_smoke.py`` read it, never
+    the served path. Per launch it is the batch times
+    ``launch_counts(...).tma_bytes``."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    tally = _tallies.get(device)
+    return 0 if tally is None else int(tally.item())
+
+
 def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
                out_rows: int, src_keys: tuple[int, ...], dtype: torch.dtype,
                device: torch.device):
     """(workspace elems per image, geometry, launch shared memory, resident
-    clusters, device descriptor, :func:`launch_counts`) of one span, built
-    once per (span, spill, tile height, dtype, device, cluster sizes) and
-    cached: a launch then does no schedule or geometry work on the host.
+    clusters, device descriptor, :func:`launch_counts`, :class:`_BMaps`)
+    of one span, built once per (span, spill, tile height, dtype, device,
+    cluster sizes) and cached: a launch then does no schedule or geometry
+    work on the host. The first plan on a device makes its TMA byte
+    counter (:func:`tma_tally`), so a capture, which follows a warm-up
+    call, finds it.
 
     The geometry is the one for the largest size in ``CLUSTER_SIZES`` the
     device can place (16, else 8); RuntimeError when it can place none,
@@ -408,9 +518,18 @@ def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
         resident = _cluster_choice[query]
         if resident >= 1:
             desc = torch.tensor(words, dtype=torch.int32, device=device)
+            specs = []
+            for layer, t in zip(net.layers[a:b], geom.tiles[1:]):
+                if layer.kind == "conv":
+                    specs.append((int(t.window), layer.k, layer.in_ch,
+                                  layer.out_ch, t.tc, t.bk)
+                                 if tma_box(layer, t) is not None else None)
+            if device not in _tallies:
+                _tallies[device] = torch.zeros(1, dtype=torch.int64,
+                                               device=device)
             plan = _plans[key] = (
                 schedule.scratch_elems(), geom, smem, resident, desc,
-                launch_counts(net, a, b, schedule, geom))
+                launch_counts(net, a, b, schedule, geom), _BMaps(specs))
             return plan
     raise RuntimeError(f"span ({a}, {b}): the device places no cluster of "
                        f"{' or '.join(map(str, sizes))} CTAs with "
@@ -441,8 +560,8 @@ def _launcher():
     fn = _build.library("fused_span").occam_fused_span_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, ctypes.c_longlong, p, p, i, p, i, p, i,
-                       i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, ctypes.c_longlong, p, p, p, i, p, i, p,
+                       i, p, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -490,7 +609,9 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     for off, layer in enumerate(net.layers[a:b]):
         if layer.kind == "conv":
             p = layer_params[off]
-            w_list.append(p["w"].to(dev, torch.float32).contiguous())
+            w = p["w"].to(dev, torch.float32).contiguous()
+            # a TMA tensor map's base is 16-byte aligned; a fresh tensor is
+            w_list.append(w if w.data_ptr() % 16 == 0 else w.clone())
             b_list.append(p["b"].to(dev, torch.float32).contiguous())
     if len(w_list) > MAX_CONV or len(src_list) > MAX_SRC \
             or len(spill) > MAX_SPILL:
@@ -504,17 +625,19 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     spills = [torch.empty((batch,) + net.map_shape(m), dtype=xs.dtype,
                           device=dev) for m in spill]
     plan = _span_plan(net, a, b, spill, out_rows, src_keys, xs.dtype, dev)
-    per_image, geom, smem, resident, desc, cost = plan
+    per_image, geom, smem, resident, desc, cost, b_maps = plan
     workspace = torch.empty(batch * per_image, dtype=xs.dtype, device=dev)
     launch = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(_DTYPE_CODES[xs.dtype], desc.data_ptr(), xs.data_ptr(),
                     out.data_ptr(), workspace.data_ptr(), per_image,
-                    _ptr_array(w_list), _ptr_array(b_list), len(w_list),
+                    _ptr_array(w_list), _ptr_array(b_list),
+                    b_maps.get(w_list), len(w_list),
                     _ptr_array(src_list), len(src_list),
-                    _ptr_array(spills), len(spills), batch, geom.cluster,
-                    smem, stream)
+                    _ptr_array(spills), len(spills),
+                    _tallies[dev].data_ptr(), batch,
+                    geom.cluster, smem, stream)
     if rc != 0:
         raise RuntimeError(f"fused-span kernel launch failed: CUDA error {rc}")
     counts.add(cost)
@@ -522,7 +645,8 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     last_launch.update(clusters=batch, cluster=geom.cluster,
                        ctas=batch * geom.cluster, threads=THREADS,
                        smem=smem, resident_clusters=resident, rows=cost.rows,
-                       barriers=cost.barriers, weight_bytes=cost.weight_bytes)
+                       barriers=cost.barriers, weight_bytes=cost.weight_bytes,
+                       tma_bytes=cost.tma_bytes)
     return out, dict(zip(spill, spills))
 
 

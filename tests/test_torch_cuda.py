@@ -89,6 +89,13 @@ CASES = [
                          (P, 2, 2, 0, 0)], 224, 3, (), None),
     # one of VGG-19's 512 -> 512 convs on a 28-row map: K = 4,608
     ("vgg-k4608-28", [(C, 3, 1, 1, 512)], 28, 512, (), None),
+    # C_out 6 and 10 (2 mod 4): rows TMA cannot take, so B goes by 4-byte
+    # cp.async copies, in window and in im2col mode
+    ("cout-2-mod-4", [(C, 3, 1, 1, 6), (C, 3, 1, 1, 10)], 10, 4, (), None),
+    # partial K-chunks and channel tiles under TMA: im2col K = 54 in a chunk
+    # of 64, C_in 44 in window chunks of 64 (32 at clusters of 8, a tail of
+    # 12), C_out 44 and 52 in tiles of 12 and 8 (28)
+    ("ragged-k-c", [(C, 3, 1, 1, 44), (C, 3, 1, 1, 52)], 14, 6, (), None),
 ]
 
 
@@ -127,7 +134,8 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, name, specs, hw, ch,
     """The CUDA kernel equals its plain version on the card (fp32 1e-4
     with TF32 off; bf16 5e-2), output and spills, at out_rows 1 and 2, and
     each call is one counted launch that adds its schedule's rows and
-    cluster barriers."""
+    cluster barriers, and whose CTAs sum on the device the bytes the host
+    counts them to stage by TMA, batch x ``tma_bytes``."""
     rng = np.random.default_rng(0)
     net = chain(name, specs, in_h=hw, in_w=hw, in_ch=ch,
                 residual_edges=edges)
@@ -144,9 +152,12 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, name, specs, hw, ch,
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     for out_rows in (1, 2):
         before = kernel.counts.copy()
+        tally = kernel.tma_tally(cuda)
         got, got_sp = kernel.span_cuda_call(maps[a], params[a:b], net, a, b,
                                             out_rows=out_rows, srcs=srcs,
                                             spill=spill)
+        assert kernel.tma_tally(cuda) - tally == 2 * kernel.last_launch[
+            "tma_bytes"]
         sched = closure.span_schedule(net, a, b, spill=spill,
                                       out_rows=out_rows)
         n_rows, n_barriers = kernel.span_counts(sched)
@@ -157,9 +168,13 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, name, specs, hw, ch,
                                                              n_barriers)
         assert kernel.counts - before == cost
         assert {k: kernel.last_launch[k] for k in (
-            "rows", "barriers", "weight_bytes")} == {
+            "rows", "barriers", "weight_bytes", "tma_bytes")} == {
             "rows": n_rows, "barriers": n_barriers,
-            "weight_bytes": cost.weight_bytes}
+            "weight_bytes": cost.weight_bytes, "tma_bytes": cost.tma_bytes}
+        # B arrives by TMA wherever C_out is a multiple of 4
+        assert cost.tma_bytes == (cost.weight_bytes if all(
+            ly.out_ch % 4 == 0 for ly in net.layers[a:b]
+            if ly.kind == C) else 0)
         want, want_sp = span_plain_call(maps[a], params[a:b], net, a, b,
                                         out_rows=out_rows, srcs=srcs,
                                         spill=spill)
@@ -222,11 +237,14 @@ def test_cuda_kernel_matches_plain_at_cluster_8(cuda, monkeypatch, dtype,
                           if any(s < p < t for p in cuts) and a < s < b}))
     srcs = {s: maps[s] for (s, t) in edges if s < a < t <= b}
     for out_rows in (1, 2):
+        tally = kernel.tma_tally(cuda)
         got, got_sp = kernel.span_cuda_call(maps[a], params[a:b], net, a, b,
                                             out_rows=out_rows, srcs=srcs,
                                             spill=spill)
         assert kernel.last_launch["cluster"] == 8
         assert kernel.last_launch["ctas"] == 2 * 8
+        assert kernel.tma_tally(cuda) - tally == 2 * kernel.last_launch[
+            "tma_bytes"]
         want, want_sp = span_plain_call(maps[a], params[a:b], net, a, b,
                                         out_rows=out_rows, srcs=srcs,
                                         spill=spill)
@@ -245,7 +263,10 @@ def test_session_on_gpu_equals_run(cuda, policy):
     """A serving session on the card replays one captured CUDA graph per
     round size: its lanes equal the eager ``run`` of the same images bit
     for bit, one capture serves every submit size, and each replay adds
-    the captured launches, rows and barriers to the kernel's counts."""
+    the captured launches, rows, barriers and weight bytes to the kernel's
+    counts. Every weight byte arrives by TMA, and the device's sum of the
+    TMA bytes grows by the round's lanes times ``per_replay``'s each
+    replay, as it does each eager launch."""
     net = chain("res", [(C, 3, 2, 1, 4), (P, 3, 2, 1, 0), (C, 3, 1, 1, 4),
                         (C, 3, 1, 1, 4), (C, 3, 2, 1, 8), (C, 3, 1, 1, 8)],
                 in_h=16, in_w=16, in_ch=3, residual_edges=((2, 4), (4, 6)))
@@ -258,11 +279,14 @@ def test_session_on_gpu_equals_run(cuda, policy):
     xs = [rng.standard_normal((n, 16, 16, 3), np.float32) for n in sizes]
     # an eager run's counts, which a replay must add as well
     before = kernel.counts.copy()
+    tally = kernel.tma_tally(cuda)
     dep.run(params, xs[0])
     eager = kernel.counts - before
     assert eager.launches == spans and eager.barriers > 0
-    assert eager.weight_bytes > 0
+    assert eager.weight_bytes > 0 and eager.tma_bytes == eager.weight_bytes
+    assert kernel.tma_tally(cuda) - tally == 4 * eager.tma_bytes
     before = kernel.counts.copy()
+    tally = kernel.tma_tally(cuda)
     sess = dep.serve(params, round_batch=4)
     # the warm-up call
     assert kernel.counts - before == eager
@@ -274,6 +298,8 @@ def test_session_on_gpu_equals_run(cuda, policy):
     rounds = -(-sum(sizes) // 4)
     assert kernel.counts - before == kernel.Counts(
         *(v * (1 + rounds) for v in dataclasses.astuple(eager)))
+    assert kernel.tma_tally(cuda) - tally \
+        == 4 * (1 + rounds) * step.per_replay.tma_bytes
     assert sess.compile_count == 1
     for (_t, y), x in zip(res, xs):
         assert y.device.type == "cuda"

@@ -286,8 +286,105 @@ def test_launch_geometry_tiles_rows_once(name, cluster):
         for off in range(1, b - a + 1):
             t = geom.tiles[off]
             rec = maps[off * kernel._M_LEN:(off + 1) * kernel._M_LEN]
-            assert rec[-7:] == [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages,
-                                int(t.window)]
+            assert rec[-8:] == [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages,
+                                int(t.window),
+                                int(kernel.tma_box(net.layers[a + off - 1], t)
+                                    is not None)]
+
+
+def _tma_maps(name, cluster):
+    """(layer, tile, descriptor stage offset) of every conv map of a
+    benchmark plan (as :func:`_geometry_spans`) or of a CPU or GPU case."""
+    cases = {c[0]: c for c in CASES + CUDA_CASES}
+    if name in cases:
+        specs, hw, ch, edges, span = cases[name][1:6]
+        net = chain(name, specs, in_h=hw, in_w=hw, in_ch=ch,
+                    residual_edges=edges)
+        spans = [span or (0, net.n_layers)]
+    else:
+        net, spans = _geometry_spans(name)
+    out = []
+    for a, b in spans:
+        cuts = [c for c in (a, b) if 0 < c < net.n_layers]
+        spill = span_engine.span_spills(net, cuts, a, b)
+        sched = closure.span_schedule(net, a, b, spill=spill)
+        geom = kernel.span_geometry(net, a, b, cluster)
+        desc = kernel._descriptor(net, a, b, sched, spill,
+                                  kernel.crossing_source_keys(net, a, b),
+                                  cluster)
+        for off, layer in enumerate(net.layers[a:b], start=1):
+            if layer.kind == "conv":
+                out.append((layer, geom.tiles[off], desc[8]))
+    return out
+
+
+@pytest.mark.parametrize("cluster", kernel.CLUSTER_SIZES)
+@pytest.mark.parametrize("name", ["resnet18", "alexnet", "vggnet-786432",
+                                  "vggnet-3145728"]
+                         + sorted({c[0] for c in CASES + CUDA_CASES}))
+def test_tma_boxes_land_b_in_the_padded_stages(name, cluster):
+    """For every conv map of the benchmark plans and of the CPU and GPU
+    cases: where C_out is a multiple of 4, B's TMA box is ``tc`` channels
+    (a 16-byte multiple) by at most 256 K rows (by k * k taps in window
+    mode), and the chunk's copies (two, or two a tap, past 256) cover
+    B[kc][tc] exactly, the bytes its mbarrier waits for; the K-chunk
+    region starts 128-byte aligned, each stage's A part is padded so B
+    starts 128-byte aligned, and the next stage too, and the region (the
+    stages, then the K-split sums where they do not fit one) fits
+    ``SMEM_BUDGET - DESC_RESERVE``. The mbarriers, one for each of the
+    ``MAX_STAGES`` stages a map may hold, are static shared memory beside
+    the tap table and the TMA byte sum, and a CTA with all of it still
+    leaves room for a second on the SM (228 KB, 1 KB reserved a CTA)."""
+    for layer, t, stage_off in _tma_maps(name, cluster):
+        box = kernel.tma_box(layer, t)
+        kc = layer.k ** 2 * t.bk if t.window else t.bk
+        if layer.out_ch % 4:
+            assert box is None
+        else:
+            assert box is not None and box[0] == t.tc and t.tc % 4 == 0
+            assert max(box) <= kernel.TMA_BOX_MAX
+            assert box[1] == min(t.bk, kernel.TMA_BOX_MAX)
+            copies = t.bk // box[1] * (layer.k ** 2 // box[2]
+                                       if t.window else 1)
+            assert len(box) == (3 if t.window else 2)
+            assert copies * int(np.prod(box)) == kc * t.tc
+            assert copies == (1 if t.bk <= 256 else
+                              2 * layer.k ** 2 if t.window else 2)
+        twp = -(-t.tw // 4) * 4
+        b_off, st = kernel._stage_floats(twp, t.tc, layer.k, layer.stride,
+                                         t.bk, t.window)
+        assert (4 * stage_off) % 128 == 0
+        assert (4 * b_off) % 128 == 0 and (4 * st) % 128 == 0
+        if t.window:
+            a = layer.k * ((twp - 1) * layer.stride + layer.k) * (t.bk + 4)
+        else:
+            a = twp * (t.bk + 4)
+        assert a <= b_off < a + 32 and b_off + kc * t.tc <= st
+        red = t.ks * twp * t.tc
+        assert 4 * (t.stages * st + (red if red > st else 0)) == t.smem
+        assert t.smem <= kernel.SMEM_BUDGET - kernel.DESC_RESERVE
+        assert t.stages <= kernel.MAX_STAGES
+        assert kernel.STATIC_SMEM == 4 * kernel.MAX_TAPS + 8 \
+            + kernel.MAX_STAGES * kernel.MBARRIER
+        assert 2 * (4 * stage_off + t.smem + kernel.STATIC_SMEM + 1024) \
+            <= 233_472
+
+
+@pytest.mark.parametrize("cluster", kernel.CLUSTER_SIZES)
+def test_a_512_deep_im2col_chunk_takes_two_boxes(cluster):
+    """The GPU case ``stem-11x11-s4`` (AlexNet's 11x11 stride-4 stem at 16
+    channels) stages im2col chunks 512 K rows deep (K = 363): over the
+    box's 256-row edge, so a chunk is two copies, the second 256 rows on
+    (past K: zero filled). The benchmark plans' convs take one box a
+    chunk: their deepest chunks, the 64-channel stems', are 256 rows."""
+    deep = [(layer, t) for layer, t, _s in _tma_maps("stem-11x11-s4",
+                                                     cluster)
+            if t.bk > 256]
+    assert deep and all(not t.window for _l, t in deep)
+    for layer, t in deep:
+        assert kernel.tma_box(layer, t) == (t.tc, 256)
+    for name in ("resnet18", "alexnet", "vggnet-3145728"):
+        assert all(t.bk <= 256 for _l, t, _s in _tma_maps(name, cluster))
 
 
 def test_launch_geometry_raises_outside_the_kernel():

@@ -1,11 +1,12 @@
 """The fused-span kernel's counts (``kernel.Counts``) on the CPU.
 
 One launch's rows, cluster barriers and staged weight bytes
-(``kernel.launch_counts``) against a hand count, and its weight bytes
-against a replay of the copies ``conv_group`` issues; the benchmark
-plans' counts; the record's arithmetic; a serving step adding its
-recorded counts once a replay; and the round span carrying the weight
-bytes and the deployment's boundary bytes per image. The counts of a
+(``kernel.launch_counts``) against a hand count, its weight bytes against
+a replay of the copies ``conv_group`` issues and its TMA bytes against a
+replay of its TMA boxes; the benchmark plans' counts; the record's
+arithmetic; a serving step adding its recorded counts once a replay; and
+the round span carrying the weight and TMA bytes and the deployment's
+boundary bytes per image. The counts of a
 launch on the card are tested in ``tests/test_torch_cuda.py``.
 """
 import dataclasses
@@ -84,6 +85,31 @@ def _copied_bytes(layer, t, cluster):
     return total
 
 
+def _boxed_bytes(layer, t, cluster):
+    """One row's in-range bytes of the TMA boxes ``conv_group``'s
+    ``load_b_tma`` issues over every CTA and K-chunk, replayed from its
+    loops: a box edge is at most 256 K rows (a 512-deep chunk takes two,
+    in window mode two a tap), and a box's rows past C_in (or K) and
+    channels past the CTA's ``nc`` are zero fills that move no byte."""
+    k, c_in = layer.k, layer.in_ch
+    kdim = k * k * c_in
+    n_chunks = -(-c_in // t.bk) if t.window else -(-kdim // t.bk)
+    bkb = min(t.bk, 256)
+    total = 0
+    for _x0, nx, _c0, nc in t.tiles(cluster, layer.out_w, layer.out_ch):
+        if nx <= 0 or nc <= 0:
+            continue
+        for c in range(n_chunks):
+            k0 = c * t.bk
+            for h in range(0, t.bk, 256):
+                if t.window:
+                    rows = max(0, min(bkb, c_in - k0 - h)) * k * k
+                else:
+                    rows = max(0, min(bkb, kdim - k0 - h))
+                total += rows * nc * 4
+    return total
+
+
 def _plan_spans(name):
     """(net, [(a, b, spill)]) of a benchmark plan or a GPU case."""
     if name in ("vggnet", "resnet18", "alexnet"):
@@ -124,15 +150,50 @@ def test_weight_bytes_replay_the_copies_of_conv_group(name, cluster):
         assert got.weight_bytes == want, (name, a, b)
 
 
+@pytest.mark.parametrize("cluster", kernel.CLUSTER_SIZES)
+@pytest.mark.parametrize("name", ["vggnet", "resnet18", "alexnet"]
+                         + [c[0] for c in CUDA_CASES])
+def test_tma_bytes_replay_the_boxes_of_conv_group(name, cluster):
+    """For every span of the benchmark plans and of the GPU parity cases,
+    the counted TMA bytes equal the in-range bytes of the boxes
+    ``load_b_tma`` issues, over the convs whose C_out is a multiple of 4;
+    a box moves the bytes the copies of ``load_b`` would, so on the
+    benchmark plans every weight byte arrives by TMA, and on a net whose
+    C_out is 2 mod 4 none does."""
+    net, spans = _plan_spans(name)
+    for a, b, spill in spans:
+        sched = closure.span_schedule(net, a, b, spill=spill)
+        geom = kernel.span_geometry(net, a, b, cluster)
+        want = 0
+        for off, layer in enumerate(net.layers[a:b], start=1):
+            t = geom.tiles[off]
+            if layer.kind == "conv":
+                boxed = _boxed_bytes(layer, t, cluster)
+                assert boxed == _copied_bytes(layer, t, cluster)
+                if kernel.tma_box(layer, t) is not None:
+                    produced = sum(len(step[off - 1]) for step in sched.steps)
+                    want += produced * boxed
+        got = kernel.launch_counts(net, a, b, sched, geom)
+        assert got.tma_bytes == want, (name, a, b)
+        if name in ("vggnet", "resnet18", "alexnet"):
+            assert got.tma_bytes == got.weight_bytes > 0
+        if name == "cout-2-mod-4":
+            assert got.tma_bytes == 0 < got.weight_bytes
+
+
 # what one image of each benchmark plan costs: the kernel's launches,
-# rows, barriers and weight bytes, and the deployment's boundary bytes
-# (the plan's feature traffic)
+# rows, barriers, weight bytes and TMA bytes (all of them: every conv's
+# C_out is a multiple of 4), and the deployment's boundary bytes (the
+# plan's feature traffic)
 PLAN_COUNTS = {
     "vggnet": ([6, 11, 12, 13, 14, 16, 17, 18, 19],
-               kernel.Counts(10, 1_281, 891, 3_051_159_552), 18_364_416),
+               kernel.Counts(10, 1_281, 891, 3_051_159_552, 3_051_159_552),
+               18_364_416),
     "resnet18": ([12, 15, 16, 17],
-                 kernel.Counts(5, 588, 229, 487_538_688), 2_207_744),
-    "alexnet": ([], kernel.Counts(1, 167, 49, 154_581_504), 655_212),
+                 kernel.Counts(5, 588, 229, 487_538_688, 487_538_688),
+                 2_207_744),
+    "alexnet": ([], kernel.Counts(1, 167, 49, 154_581_504, 154_581_504),
+                655_212),
 }
 
 
@@ -169,7 +230,7 @@ def test_counts_record_adds_subtracts_and_resets():
     c.reset(before)
     assert c == before and c is not before
     c.reset()
-    assert dataclasses.astuple(c) == (0, 0, 0, 0)
+    assert dataclasses.astuple(c) == (0, 0, 0, 0, 0)
 
 
 class _Graph:
@@ -219,14 +280,14 @@ def test_a_replay_adds_the_recorded_counts_once(small):
 def test_round_span_carries_the_counts_per_image(small):
     """While a profiler records, every round carries the deployment's
     boundary bytes per image on ``occam.session.round``, and a round that
-    launches the kernel its step's weight bytes per image; a round on the
-    CPU's plain path launches nothing and carries no weight bytes."""
+    launches the kernel its step's weight bytes and TMA bytes per image; a
+    round on the CPU's plain path launches nothing and carries neither."""
     dep, params, xs = small
     boundary = dep._per_image_profile().total_bytes
     assert boundary == dep.plan.predicted.feature_elems * 4
     trace.clear()
     try:
-        for per in (kernel.Counts(), kernel.Counts(2, 40, 12, 5_000)):
+        for per in (kernel.Counts(), kernel.Counts(2, 40, 12, 5_000, 4_000)):
             with dep.serve(params, round_batch=2) as sess:
                 sess._step.per_replay = per
                 with torch.profiler.profile(
@@ -239,8 +300,9 @@ def test_round_span_carries_the_counts_per_image(small):
             assert [r.attrs["lanes"] for r in rounds] == [2, 1]
             for r in rounds:
                 got = (r.attrs.get("weight_bytes"),
+                       r.attrs.get("weight_tma_bytes"),
                        r.attrs.get("boundary_bytes"))
-                assert got == ((5_000 if per.launches else None),
-                               boundary)
+                assert got == ((5_000, 4_000) if per.launches
+                               else (None, None)) + (boundary,)
     finally:
         trace.clear()
