@@ -379,6 +379,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# the benchmark's yardstick, which imports nothing of the program
+from perfbench.work import in_range_taps  # noqa: E402
+
 FP32_TFLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 TF32_TFLOPS = 495e12    # H100 SXM TF32 on the tensor cores, dense
 BF16_TFLOPS = 989e12    # H100 SXM bf16 and fp16 on the tensor cores, dense
@@ -575,14 +578,6 @@ def he_params(net, rng):
         b = rng.standard_normal((layer.out_ch,), np.float32) * 0.01
         params.append({"w": w.astype(np.float32), "b": b})
     return params
-
-
-def in_range_taps(n_out, n_in, k, stride, pad):
-    """(output position, tap) pairs along one axis whose input index lies
-    inside [0, n_in): the taps the kernel multiplies. Taps on the zero
-    padding are skipped, so they are no work."""
-    return sum(1 for r in range(n_out) for d in range(k)
-               if 0 <= r * stride - pad + d < n_in)
 
 
 def span_cost(net, a, b, batch, spill, src_keys, itemsize=4):
@@ -1509,10 +1504,9 @@ def vggnet_phase(torch, occam, kernel, span_plain_call, compare, time_span,
     if counts.launches != len(plan.routes):
         raise AssertionError(f"vggnet run: {counts.launches} launches")
     # the device's sum of the bytes the CTAs staged by TMA, against the
-    # host model: every weight byte of VGG-19 arrives by TMA
-    if not tally == 8 * counts.tma_bytes == 8 * counts.weight_bytes:
+    # host model
+    if tally != 8 * counts.weight_bytes:
         raise AssertionError(f"vggnet TMA bytes: device {tally}, host "
-                             f"{8 * counts.tma_bytes} of "
                              f"{8 * counts.weight_bytes}")
     err, scale = compare("vggnet run", y, maps[-1], rel=1e-3)
     rep = dep.report()
@@ -1522,9 +1516,8 @@ def vggnet_phase(torch, occam, kernel, span_plain_call, compare, time_span,
           f"{tuple(y.shape)}, max|run-oracle| {err:.3e} (max|oracle| "
           f"{scale:.3e}), matches_prediction True; per image "
           f"{counts.rows} rows, {counts.barriers} barriers, "
-          f"{counts.weight_bytes / 1e6:.3f} MB of weights staged, "
-          f"{counts.tma_bytes / 1e6:.3f} MB of them by TMA (the device "
-          f"counted {tally / 8e6:.3f})")
+          f"{counts.weight_bytes / 1e6:.3f} MB of weights staged by TMA "
+          f"(the device counted {tally / 8e6:.3f})")
     for r in plan.routes:
         a, b = r.start, r.end
         kw = dict(srcs={}, spill=span_engine.span_spills(

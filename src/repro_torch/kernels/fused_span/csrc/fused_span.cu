@@ -68,16 +68,16 @@
 //   lands exactly as B[kk][tc] and completes on the stage's mbarrier. The
 //   copy engine forms the addresses and zero-fills K past C_in (or K) and
 //   channels past C_out, so no thread spends instructions or load slots
-//   on B: with cp.async, all 256 threads issued ~2,300 16-byte copies a
-//   chunk. The tensor maps are encoded on the host (kernel.py caches them
-//   by the weights' addresses) and travel as __grid_constant__ kernel
-//   parameters. A stage's mbarrier sits in static shared memory,
-//   initialised once a CTA, and everything else the copy needs is formed
-//   where it is issued: at 128 registers, values kept live across the
-//   chunk loop spill (barriers placed after each map's stages and set up
-//   per group lost the gain at one image). B goes by cp.async where
-//   C_out % 4 != 0 (a row stride TMA cannot take) or a tile is wider than
-//   a box.
+//   on B. Every conv's B goes this way: kernel.py pads the weights of a
+//   conv whose C_out is not a multiple of 4 to rows of a multiple of 16
+//   bytes (a row stride TMA takes), and keeps every tile within one box
+//   edge (256 channels). The tensor maps are encoded on the host
+//   (kernel.py caches them by the weights' addresses) and travel as
+//   __grid_constant__ kernel parameters. A stage's mbarrier sits in static
+//   shared memory, initialised once a CTA, and everything else the copy
+//   needs is formed where it is issued: at 128 registers, values kept
+//   live across the chunk loop spill (barriers placed after each map's
+//   stages and set up per group lost the gain at one image).
 // - A CTA reads only its own C_out slice of each layer's weights, through
 //   shared memory in K-chunks; every row of every image reads it again
 //   from L2. The TPU kept the filters VMEM-resident across the batch.
@@ -117,25 +117,24 @@ enum Header {
 // CTA's tile of the row (columns x channels), M_NCT the channel tiles per
 // row; for a conv row, M_MODE how A is staged (0 im2col, 1 window), M_BK
 // the K indices (im2col) or input channels (window) of a chunk, a power of
-// two >= 4, M_KS the K-split groups, M_STAGES the chunks held in shared
-// memory (2-4) and M_TMA 1 where B arrives by TMA (SpanPtrs::b_map).
+// two >= 4, M_KS the K-split groups and M_STAGES the chunks held in shared
+// memory (2-4); M_CONV indexes the conv's SpanPtrs::b_map and bias.
 enum MapField {
   M_KIND, M_K, M_STRIDE, M_PAD, M_H, M_W, M_C, M_CAP, M_RING,
   M_RES0, M_NRES, M_SPILL, M_CONV, M_TW, M_TC, M_NCT, M_BK, M_KS,
-  M_STAGES, M_MODE, M_TMA, M_LEN
+  M_STAGES, M_MODE, M_LEN
 };
 // One record per residual edge ending in the span, in net order.
 // R_SRC_KIND 0: the source is ring R_SRC; 1: it is srcs operand R_SRC.
 enum ResField { R_SRC_KIND, R_SRC, R_H, R_W, R_C, R_LEN };
 
 struct SpanPtrs {
-  CUtensorMap b_map[kMaxConv];  // conv i's weights, where its M_TMA is 1
+  CUtensorMap b_map[kMaxConv];  // conv i's weights
   unsigned long long* tma_tally;  // bytes staged by TMA, summed over CTAs
   const void* x;
   void* out;
   void* ws;
   long long ws_per_image;
-  const float* w[kMaxConv];
   const float* bias[kMaxConv];
   const void* src[kMaxSrc];
   void* spill[kMaxSpill];
@@ -364,10 +363,10 @@ __device__ __forceinline__ void finish_row(
 // part padded to 128 bytes then B[kc][tc] (kc K indices of the chunk),
 // the stage padded to 128 bytes, and M_STAGES - 1 chunks are in flight
 // while one is multiplied, the next row's first chunks while a row's last
-// is multiplied and its tile finished. Where M_TMA is 1, B arrives by one
-// TMA copy (two, or two a tap, for a 512-deep chunk) on the stage's
-// mbarrier, bars[s]; bit s of `phase` is the parity of its next
-// completion. A is staged one of two ways (M_MODE):
+// is multiplied and its tile finished. B arrives by one TMA copy (two, or
+// two a tap, for a 512-deep chunk) on the stage's mbarrier, bars[s]; bit
+// s of `phase` is the parity of its next completion. A is staged by
+// cp.async one of two ways (M_MODE):
 // - im2col: a chunk is M_BK consecutive K indices, A[twp][M_BK + 4];
 // - window: a chunk is every tap over M_BK input channels, and A is the
 //   CTA's input window W[k][(twp - 1) * stride + k][M_BK + 4], each input
@@ -392,10 +391,10 @@ __device__ __forceinline__ void conv_group(
   const int* mp = maps + (off - 1) * M_LEN;
   const int k = mm[M_K], stride = mm[M_STRIDE], pad = mm[M_PAD];
   const int h_in = mp[M_H], w_in = mp[M_W], c_in = mp[M_C];
-  const int cap_in = mp[M_CAP], c_out = mm[M_C];
+  const int cap_in = mp[M_CAP];
   const int tc = mm[M_TC], twp = (mm[M_TW] + 3) & ~3;
   const int bk = mm[M_BK], ks = mm[M_KS], stages = mm[M_STAGES];
-  const bool window = mm[M_MODE] == 1, tma = mm[M_TMA] == 1;
+  const bool window = mm[M_MODE] == 1;
   const T* ring_in = ws + mp[M_RING];
   const int lg_bk = __ffs(bk) - 1;
   const int cstr = bk + 4;  // row stride of A (both modes)
@@ -411,7 +410,7 @@ __device__ __forceinline__ void conv_group(
   auto bar = [&](int s) {
     return static_cast<unsigned>(__cvta_generic_to_shared(bars + s));
   };
-  if (tma && tid == 0) {
+  if (tid == 0) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(
         reinterpret_cast<unsigned long long>(&p.b_map[mm[M_CONV]])));
     // the previous group's generic writes to these bytes are ordered
@@ -529,48 +528,13 @@ __device__ __forceinline__ void conv_group(
       }
     }
   };
-  // B[kk][n] = the weight row of the chunk's kk-th K index, columns c0 + n;
-  // zero past K and past the tile's nc. By cp.async, all threads: where
-  // M_TMA is 0 (C_out % 4 != 0, or a tile wider than a box). 16-byte
-  // copies serve the second case; a 4-byte-only path made the TMA path
-  // 2-4% slower through ptxas's register allocation
-  auto load_b = [&](int c, float* bs) {
-    const float* __restrict__ wt = p.w[mm[M_CONV]];
-    const bool vec_b = (c_out & 3) == 0;
-    const int per_row = vec_b ? tc >> 2 : tc;
-    const int b_lanes = min(per_row, kThreads);
-    const int b_rows = kThreads / b_lanes;
-    const int k0 = c * bk;
-    for (int qi = tid < b_rows * b_lanes ? tid % b_lanes : per_row;
-         qi < per_row; qi += b_lanes) {
-      const int q = vec_b ? qi << 2 : qi;
-      for (int kk = tid / b_lanes; kk < kc; kk += b_rows) {
-        int row;  // row of the (k*k*C_in, C_out) weight matrix
-        bool ok;
-        if (window) {
-          const int ci = k0 + (kk & (bk - 1));
-          row = (kk >> lg_bk) * c_in + ci;
-          ok = ci < c_in;
-        } else {
-          row = k0 + kk;
-          ok = row < kdim;
-        }
-        ok = ok && q < nc;
-        const float* src = ok ? wt + (long long)row * c_out + c0 + q : wt;
-        if (vec_b) {
-          cp_async16(bs + kk * tc + q, src, ok ? 16 : 0);
-        } else {
-          cp_async4(bs + kk * tc + q, src, ok ? 4 : 0);
-        }
-      }
-    }
-  };
-  // the same B by TMA, issued by one thread, on mbarrier bar: boxes of tc
-  // channels x bk rows (x k*k taps) of the map's tensor, 256 rows at most
-  // (so one box a tap for a 512-deep window chunk). The copy engine zero
-  // fills past C_in or K and past C_out (the tile's nc), and the barrier
-  // counts every byte of the boxes. kernel.py's launch_counts models the
-  // in-range bytes (weight_bytes, tma_bytes): a change here changes it
+  // B[kk][n] = the weight row of the chunk's kk-th K index, columns c0 + n,
+  // by TMA, issued by one thread, on mbarrier bar: boxes of tc channels x
+  // bk rows (x k*k taps) of the map's tensor, 256 rows at most (so one box
+  // a tap for a 512-deep window chunk). The copy engine zero fills past
+  // C_in or K and past C_out (the tile's nc), and the barrier counts every
+  // byte of the boxes. kernel.py's launch_counts models the in-range bytes
+  // (weight_bytes): a change here changes it
   auto load_b_tma = [&](int c, float* bs, unsigned b) {
     const CUtensorMap* map = &p.b_map[mm[M_CONV]];
     const int k0 = c * bk, bkb = min(bk, kBoxMax);
@@ -595,17 +559,16 @@ __device__ __forceinline__ void conv_group(
     *tma_sum += 4ull * rows_in * nc;
   };
   // chunk c of row j into stage s: B's TMA copy on the stage's barrier
-  // first, then one cp.async group, maybe empty
+  // first, then A's cp.async group, maybe empty
   auto fetch = [&](int j, int c, int s) {
     if (j < n_rows) {
       float* as = sm + s * st_size;
-      if (tma && tid == 0) load_b_tma(c, as + a_size, bar(s));
+      if (tid == 0) load_b_tma(c, as + a_size, bar(s));
       if (window) {
         load_window(rows[j], c * bk, as);
       } else {
         load_im2col(rows[j], c * bk, as);
       }
-      if (!tma) load_b(c, as + a_size);
     }
     cp_async_commit();
   };
@@ -633,10 +596,8 @@ __device__ __forceinline__ void conv_group(
     } else {
       cp_async_wait<2>();
     }
-    if (tma) {  // the chunk's B
-      mbar_wait(bar(s), (phase >> s) & 1);
-      phase ^= 1u << s;
-    }
+    mbar_wait(bar(s), (phase >> s) & 1);  // the chunk's B
+    phase ^= 1u << s;
     __syncthreads();  // the chunk is in; the last one's stage is free
     {  // the chunk stages - 1 ahead, into that stage
       int fr = row, fc = c + stages - 1;
@@ -701,7 +662,7 @@ __device__ __forceinline__ void conv_group(
     __syncthreads();
     // the sums' generic writes are ordered before the TMA copy that next
     // overwrites this stage, issued by this thread
-    if (tma && red_in_stage && tid == 0) fence_proxy_async();
+    if (red_in_stage && tid == 0) fence_proxy_async();
     // the next chunk's __syncthreads frees `red` before a fetch rewrites it
     finish_row<T, true>(maps, res, off, n_maps, rows[row], n, x0, nx, c0, nc,
                         ws, out, p, sbias, red, ks);
@@ -911,10 +872,12 @@ extern "C" int occam_fused_span_max_clusters(int dtype, int cluster,
 // (k*k, C_in, C_out) tensor with a box of (tc, min(bk, 256), k*k taps, or
 // 1 where bk > 256), else the (K, C_out) matrix with a box of (tc,
 // min(bk, 256)); extents are the tensor's, so the copy engine zero-fills
-// past them. C_out % 4 == 0, tc <= 256 and a 16-byte-aligned `w` are the
-// caller's. libcuda's cuTensorMapEncodeTiled is found through the
-// runtime's entry-point query, so nothing links libcuda. Returns the
-// CUresult, or -1 where the encoder is not found.
+// past them. `w`'s rows hold C_out rounded up to a multiple of 4 floats
+// (16 bytes, the row stride TMA takes; the channels past C_out are never
+// read); tc <= 256 and a 16-byte-aligned `w` are the caller's. libcuda's
+// cuTensorMapEncodeTiled is found through the runtime's entry-point
+// query, so nothing links libcuda. Returns the CUresult, or -1 where the
+// encoder is not found.
 extern "C" int occam_fused_span_encode_b_map(void* map, const void* w,
                                              int window, int k, int c_in,
                                              int c_out, int tc, int bk) {
@@ -934,7 +897,7 @@ extern "C" int occam_fused_span_encode_b_map(void* map, const void* w,
     return reinterpret_cast<Encode>(fn);
   }();
   if (encode == nullptr) return -1;
-  const cuuint64_t row = static_cast<cuuint64_t>(c_out) * 4;
+  const cuuint64_t row = static_cast<cuuint64_t>((c_out + 3) & ~3) * 4;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c_out),
                               static_cast<cuuint64_t>(window ? c_in
                                                              : k * k * c_in),
@@ -956,14 +919,14 @@ extern "C" int occam_fused_span_encode_b_map(void* map, const void* w,
 // dtype: 0 float32, 1 bfloat16, 2 float16 (activations; weights and biases
 // are float32). One cluster of `cluster` CTAs per image, `smem` bytes of
 // dynamic shared memory each; the descriptor's tiles must be those of
-// this cluster size. `b_maps` holds n_conv encoded tensor maps of 128
-// bytes (read where a conv's M_TMA is 1), and the CTAs add the bytes they
-// stage by TMA to *tma_tally. Launches on `stream`, does not synchronise,
-// and returns the launch's CUDA error.
+// this cluster size. `b_maps` holds the n_conv convs' encoded tensor maps
+// of their weights, 128 bytes each, and the CTAs add the bytes they stage
+// by TMA to *tma_tally. Launches on `stream`, does not synchronise, and
+// returns the launch's CUDA error.
 extern "C" int occam_fused_span_launch(
     int dtype, const void* desc, const void* x, void* out, void* ws,
-    long long ws_per_image, const void* const* w, const void* const* bias,
-    const void* b_maps, int n_conv, const void* const* src, int n_src,
+    long long ws_per_image, const void* const* bias, const void* b_maps,
+    int n_conv, const void* const* src, int n_src,
     void* const* spill, int n_spill, void* tma_tally, int batch,
     int cluster, int smem, void* stream) {
   if (n_conv > kMaxConv || n_src > kMaxSrc || n_spill > kMaxSpill ||
@@ -978,7 +941,6 @@ extern "C" int occam_fused_span_launch(
   p.ws = ws;
   p.ws_per_image = ws_per_image;
   for (int i = 0; i < n_conv; ++i) {
-    p.w[i] = static_cast<const float*>(w[i]);
     p.bias[i] = static_cast<const float*>(bias[i]);
   }
   for (int i = 0; i < n_src; ++i) p.src[i] = src[i];

@@ -29,8 +29,10 @@ in 2-4 chunks: as the CTA's input window, ``bk`` input channels a chunk,
 where C_in is a multiple of 4 and the window holds fewer values than
 im2col rows; else as im2col rows, ``bk`` K indices a chunk. K is split
 over ``ks`` thread groups when the tile is small. A chunk's weights (B)
-arrive by one TMA tile copy where C_out is a multiple of 4 (:func:`tma_box`),
-through tensor maps encoded here once per span plan and weight addresses.
+arrive by one TMA tile copy (:func:`tma_box`), through tensor maps encoded
+here once per span plan and weight addresses; a tile is at most 256
+channels, one box edge, and a conv whose C_out is not a multiple of 4
+has its weights zero-padded per launch to rows of 16-byte multiples.
 What bounds the kernel on the H100 and what the design does about it is
 in the source's header note.
 
@@ -42,11 +44,11 @@ launches and adds up, launch by launch, what one image of the span costs
 (:func:`launch_counts`): the rows it produces and the cluster barriers it
 waits at (:func:`span_counts`: one per input arrival and one per (step,
 map) group of rows, so ``rows / barriers`` says how many rows a barrier
-covers), and the bytes of weights its CTAs stage into shared memory, in
-all and by TMA. The CTAs also add the bytes they stage by TMA to a
-device counter (:func:`tma_tally`), which only tests read. A
-span the geometry cannot serve (a kernel wider than 32, a row tile over
-16 x 256 outputs, no cluster the device can place) raises; there is no
+covers), and the bytes of weights its CTAs stage into shared memory. The
+CTAs also add the bytes they stage to a device counter
+(:func:`tma_tally`), which only tests read. A span the geometry cannot
+serve (a kernel wider than 32, a row tile over 16 x 256 outputs or 256
+channels, no cluster the device can place) raises; there is no
 fallback.
 """
 from __future__ import annotations
@@ -68,13 +70,12 @@ class Counts:
     """What launches of the kernel cost: ``launches``, and added launch by
     launch, what one image of each launch's span costs (as
     :func:`launch_counts` gives it): ``rows`` produced, cluster
-    ``barriers`` waited at, ``weight_bytes`` of weights staged into
-    shared memory and the part of them staged by TMA, ``tma_bytes``."""
+    ``barriers`` waited at and ``weight_bytes`` of weights staged into
+    shared memory."""
     launches: int = 0
     rows: int = 0
     barriers: int = 0
     weight_bytes: int = 0
-    tma_bytes: int = 0
 
     def add(self, other: "Counts") -> None:
         for name in self.__dataclass_fields__:
@@ -97,7 +98,7 @@ class Counts:
 counts = Counts()
 # the shape of the last launch: clusters, CTAs per cluster, threads, bytes
 # of dynamic shared memory, how many clusters the device holds at once,
-# and one image's rows, cluster barriers, weight bytes and TMA bytes
+# and one image's rows, cluster barriers and weight bytes
 last_launch: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -105,7 +106,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_CONV, MAX_SRC, MAX_SPILL = 128, 8, 8
 
 # field counts of the descriptor records (csrc/fused_span.cu enums)
-_H_LEN, _M_LEN, _R_LEN = 14, 21, 5
+_H_LEN, _M_LEN, _R_LEN = 14, 20, 5
 
 # launch geometry (csrc/fused_span.cu constants)
 THREADS = 256            # threads per CTA (kThreads)
@@ -198,21 +199,24 @@ def row_tile(kind: str, k: int, c_in: int, w: int, c: int,
              cluster: int, stride: int = 1) -> RowTile:
     """The tile of a ``w`` x ``c`` output row for each CTA of a cluster.
 
-    Channel tiles are multiples of 4 (a thread's register tile); among
-    the tilings with at most ``cluster`` tiles, the one with the least
+    Channel tiles are multiples of 4 (a thread's register tile) and at
+    most ``TMA_BOX_MAX`` (one TMA box edge); among the tilings with at
+    most ``cluster`` tiles, the one with the least
     padded work on one CTA wins, then the one staging the fewest A and B
     values per K index. A conv's K-chunk and stage count keep the most of
     K in as few chunks as ``SMEM_BUDGET - DESC_RESERVE`` holds, then as
     many of them in flight as fit. A row's K-split sums share the stage
     of its last chunk, or follow the stages where they do not fit one,
     so the next row's chunks stay in flight meanwhile. Raises ValueError
-    when no tiling fits 16 x 256 outputs per CTA (a 4 x 4 register tile
-    per thread) or the window is wider than the kernel takes."""
+    when no tiling fits 16 x 256 outputs (a 4 x 4 register tile per
+    thread) and 256 channels per CTA, or the window is wider than the
+    kernel takes."""
     if k > MAX_K:
         raise ValueError(f"{kind} window {k} is wider than the fused-span "
                          f"kernel's {MAX_K}")
     best = None
-    for tc in range(MICRO, _ceil(c, MICRO) * MICRO + 1, MICRO):
+    for tc in range(MICRO, min(_ceil(c, MICRO) * MICRO, TMA_BOX_MAX) + 1,
+                    MICRO):
         n_ct = _ceil(c, tc)
         if n_ct > cluster:
             continue
@@ -225,7 +229,8 @@ def row_tile(kind: str, k: int, c_in: int, w: int, c: int,
             best = (key, tw, tc, _ceil(w, tw), n_ct)
     if best is None:
         raise ValueError(f"no tiling of a {w} x {c} row over {cluster} CTAs "
-                         f"fits {THREADS * MICRO * MICRO} outputs per CTA")
+                         f"fits {THREADS * MICRO * MICRO} outputs and "
+                         f"{TMA_BOX_MAX} channels per CTA")
     _key, tw, tc, n_wt, n_ct = best
     if kind != "conv":
         return RowTile(tw, tc, n_wt, n_ct)
@@ -285,17 +290,15 @@ def span_geometry(net: NetSpec, a: int, b: int,
 
 def tma_box(layer, tile: RowTile) -> tuple[int, ...] | None:
     """The box of one TMA copy of a conv's K-chunk of B, innermost edge
-    first, or None where B goes by ``cp.async`` (and for a pool).
+    first; None for a pool.
 
-    B arrives by TMA where the weights' rows (C_out fp32) are a multiple
-    of 16 bytes and a tile's ``tc`` channels fit one box edge (256; true
-    of every tile while C_out <= 4,096 in clusters of 16). The box is
-    ``(tc, bk, k * k)`` of the (k * k, C_in, C_out) weights in window
-    mode, ``(tc, bk)`` of the (K, C_out) matrix in im2col mode; an edge
-    over 256 (``bk`` 512) is cut to 256 and the chunk takes two copies
-    (two a tap in window mode, whose box is then one tap deep)."""
-    if layer.kind != "conv" or layer.out_ch % MICRO \
-            or tile.tc > TMA_BOX_MAX:
+    The box is ``(tc, bk, k * k)`` of the (k * k, C_in, C_out) weights in
+    window mode, ``(tc, bk)`` of the (K, C_out) matrix in im2col mode
+    (``tc`` is a multiple of 4 channels and at most 256, see
+    :func:`row_tile`); an edge over 256 (``bk`` 512) is cut to 256 and the
+    chunk takes two copies (two a tap in window mode, whose box is then
+    one tap deep)."""
+    if layer.kind != "conv":
         return None
     bk = min(tile.bk, TMA_BOX_MAX)
     if tile.window:
@@ -321,29 +324,23 @@ def launch_counts(net: NetSpec, a: int, b: int,
 
     ``weight_bytes`` is a host model of how ``conv_group`` in
     ``csrc/fused_span.cu`` stages B, by the TMA boxes of ``load_b_tma``
-    (:func:`tma_box`) or the copies of ``load_b``, and has to change
-    with them: for every row of a conv map the schedule produces, each
-    CTA with a tile of the row stages its C_out slice of the (k * k *
-    C_in, C_out) fp32 weight matrix, K deep, into shared memory. Only
-    in-range bytes count: a box's or a copy's part past K or past the
-    slice is a zero fill and moves nothing, and the biases, staged once a
-    group, are left out. ``tma_bytes`` is the part of ``weight_bytes``
-    staged by TMA boxes, counted the same way, which the CTAs also sum
-    on the device (:func:`tma_tally`)."""
+    (:func:`tma_box`), and has to change with them: for every row of a
+    conv map the schedule produces, each CTA with a tile of the row
+    stages its C_out slice of the (k * k * C_in, C_out) fp32 weight
+    matrix, K deep, into shared memory. Only in-range bytes count: a
+    box's part past K or past the slice is a zero fill and moves
+    nothing, and the biases, staged once a group, are left out. The CTAs
+    also sum these bytes on the device (:func:`tma_tally`)."""
     n_rows, n_barriers = span_counts(schedule)
-    weight = tma = 0
+    weight = 0
     for off, layer in enumerate(net.layers[a:b], start=1):
         if layer.kind != "conv":
             continue
-        tile = geom.tiles[off]
-        staged = sum(nc for _x0, nx, _c0, nc in tile.tiles(
+        staged = sum(nc for _x0, nx, _c0, nc in geom.tiles[off].tiles(
             geom.cluster, layer.out_w, layer.out_ch) if nx > 0 and nc > 0)
         produced = sum(len(step[off - 1]) for step in schedule.steps)
-        nbytes = produced * layer.k * layer.k * layer.in_ch * staged * 4
-        weight += nbytes
-        if tma_box(layer, tile) is not None:
-            tma += nbytes
-    return Counts(1, n_rows, n_barriers, weight, tma)
+        weight += produced * layer.k * layer.k * layer.in_ch * staged * 4
+    return Counts(1, n_rows, n_barriers, weight)
 
 
 def _descriptor(net: NetSpec, a: int, b: int,
@@ -363,7 +360,7 @@ def _descriptor(net: NetSpec, a: int, b: int,
         kind = k = stride = pad = 0
         conv = -1
         edges = []
-        tile = [0] * 8
+        tile = [0] * 7
         if off > 0:
             layer = net.layers[m - 1]
             kind = 0 if layer.kind == "conv" else 1
@@ -372,8 +369,7 @@ def _descriptor(net: NetSpec, a: int, b: int,
                 conv, n_conv = n_conv, n_conv + 1
             edges = [s for (s, t) in net.residual_edges if t == m]
             t = geom.tiles[off]
-            tile = [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages, int(t.window),
-                    int(tma_box(layer, t) is not None)]
+            tile = [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages, int(t.window)]
         cap = schedule.ring_caps[off] if off < n_maps - 1 else 0
         res0 = len(res) // _R_LEN
         for s in edges:
@@ -429,15 +425,15 @@ def _max_clusters(dtype: int, cluster: int, smem: int,
 
 class _BMaps:
     """The TMA tensor maps of a span's conv weights (128 bytes each, in
-    conv order; zeros where B goes by ``cp.async``). A map holds the
-    weights' address, so the maps are encoded once per set of weight
-    addresses and the last few sets kept: a session's replays and an
-    eager caller's fixed weights do no host work for them."""
+    conv order). A map holds the weights' address, so the maps are
+    encoded once per set of weight addresses and the last few sets kept:
+    a session's replays and an eager caller's fixed weights do no host
+    work for them."""
 
     KEEP = 8
 
     def __init__(self, specs: list):
-        # per conv, (window, k, C_in, C_out, tc, bk) or None
+        # per conv, (window, k, C_in, C_out, tc, bk)
         self.specs = specs
         self._by_ptrs: dict = {}
 
@@ -453,16 +449,30 @@ class _BMaps:
                                    i, i, i]
                 encode.restype = i
             for n, (spec, w) in enumerate(zip(self.specs, weights)):
-                if spec is not None:
-                    rc = encode(ctypes.addressof(maps) + 128 * n,
-                                w.data_ptr(), *spec)
-                    if rc != 0:
-                        raise RuntimeError(f"encoding conv {n}'s TMA tensor "
-                                           f"map failed: CUresult {rc}")
+                rc = encode(ctypes.addressof(maps) + 128 * n, w.data_ptr(),
+                            *spec)
+                if rc != 0:
+                    raise RuntimeError(f"encoding conv {n}'s TMA tensor map "
+                                       f"failed: CUresult {rc}")
         self._by_ptrs[key] = maps
         if len(self._by_ptrs) > self.KEEP:
             self._by_ptrs.pop(next(iter(self._by_ptrs)))
         return maps
+
+
+def tma_weights(w: torch.Tensor) -> torch.Tensor:
+    """A conv's (k, k, C_in, C_out) weights as its TMA tensor map reads
+    them: fp32, contiguous, on a 16-byte-aligned base, each row of C_out
+    channels zero-padded to a multiple of 4 (16 bytes, the row stride TMA
+    takes; the map's C_out extent leaves the pad unread). ``w`` itself
+    where it already is so, else a fresh tensor made on the current
+    stream, so a CUDA graph's capture records the pad and every replay
+    pads again from the step's params."""
+    w = w.to(torch.float32).contiguous()
+    if w.shape[-1] % 4:
+        w = torch.nn.functional.pad(w, (0, -w.shape[-1] % 4))
+    # a fresh tensor's base is 16-byte aligned
+    return w if w.data_ptr() % 16 == 0 else w.clone()
 
 
 def tma_tally(device) -> int:
@@ -471,7 +481,7 @@ def tma_tally(device) -> int:
     (each CTA adds its in-range box bytes at its end). Reading it
     synchronises the device: tests and ``chip_smoke.py`` read it, never
     the served path. Per launch it is the batch times
-    ``launch_counts(...).tma_bytes``."""
+    ``launch_counts(...).weight_bytes``."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
@@ -518,12 +528,10 @@ def _span_plan(net: NetSpec, a: int, b: int, spill: tuple[int, ...],
         resident = _cluster_choice[query]
         if resident >= 1:
             desc = torch.tensor(words, dtype=torch.int32, device=device)
-            specs = []
-            for layer, t in zip(net.layers[a:b], geom.tiles[1:]):
-                if layer.kind == "conv":
-                    specs.append((int(t.window), layer.k, layer.in_ch,
-                                  layer.out_ch, t.tc, t.bk)
-                                 if tma_box(layer, t) is not None else None)
+            specs = [(int(t.window), layer.k, layer.in_ch, layer.out_ch,
+                      t.tc, t.bk)
+                     for layer, t in zip(net.layers[a:b], geom.tiles[1:])
+                     if layer.kind == "conv"]
             if device not in _tallies:
                 _tallies[device] = torch.zeros(1, dtype=torch.int64,
                                                device=device)
@@ -560,8 +568,8 @@ def _launcher():
     fn = _build.library("fused_span").occam_fused_span_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, ctypes.c_longlong, p, p, p, i, p, i, p,
-                       i, p, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, ctypes.c_longlong, p, p, i, p, i, p, i,
+                       p, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -609,9 +617,7 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     for off, layer in enumerate(net.layers[a:b]):
         if layer.kind == "conv":
             p = layer_params[off]
-            w = p["w"].to(dev, torch.float32).contiguous()
-            # a TMA tensor map's base is 16-byte aligned; a fresh tensor is
-            w_list.append(w if w.data_ptr() % 16 == 0 else w.clone())
+            w_list.append(tma_weights(p["w"].to(dev, torch.float32)))
             b_list.append(p["b"].to(dev, torch.float32).contiguous())
     if len(w_list) > MAX_CONV or len(src_list) > MAX_SRC \
             or len(spill) > MAX_SPILL:
@@ -632,8 +638,7 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(_DTYPE_CODES[xs.dtype], desc.data_ptr(), xs.data_ptr(),
                     out.data_ptr(), workspace.data_ptr(), per_image,
-                    _ptr_array(w_list), _ptr_array(b_list),
-                    b_maps.get(w_list), len(w_list),
+                    _ptr_array(b_list), b_maps.get(w_list), len(w_list),
                     _ptr_array(src_list), len(src_list),
                     _ptr_array(spills), len(spills),
                     _tallies[dev].data_ptr(), batch,
@@ -645,8 +650,7 @@ def span_cuda_call(xs: torch.Tensor, layer_params: list[dict], net: NetSpec,
     last_launch.update(clusters=batch, cluster=geom.cluster,
                        ctas=batch * geom.cluster, threads=THREADS,
                        smem=smem, resident_clusters=resident, rows=cost.rows,
-                       barriers=cost.barriers, weight_bytes=cost.weight_bytes,
-                       tma_bytes=cost.tma_bytes)
+                       barriers=cost.barriers, weight_bytes=cost.weight_bytes)
     return out, dict(zip(spill, spills))
 
 

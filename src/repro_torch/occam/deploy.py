@@ -423,8 +423,8 @@ class _RoundStep:
     A replay launches the kernels without passing through their
     wrappers, so the step adds to the fused-span kernel's ``counts`` what
     the capture recorded (``per_replay``, a ``Counts`` record: the
-    launches, and per image of the round the rows, barriers, weight
-    bytes and TMA bytes), once per replay.
+    launches, and per image of the round the rows, barriers and weight
+    bytes), once per replay.
     """
 
     def __init__(self, deployment: Deployment, round_batch: int):
@@ -940,8 +940,7 @@ class Session:
                            boundary_bytes=self._per_image.total_bytes)
                     per = self._step.per_replay
                     if per.launches:
-                        sp.set(weight_bytes=per.weight_bytes,
-                               weight_tma_bytes=per.tma_bytes)
+                        sp.set(weight_bytes=per.weight_bytes)
                 lanes = self._step(self.params, xs)
             self._deliver(segs, lanes)
             return

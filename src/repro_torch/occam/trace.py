@@ -51,9 +51,8 @@ The spans, with their attributes:
   replay, clone); ``round``, ``lanes``, ``tickets``; per image lane of
   the round, ``boundary_bytes`` moved to and from device memory (the
   deployment's per-image transfer profile) and, where the round launches
-  the fused-span kernel, ``weight_bytes`` staged into shared memory and
-  ``weight_tma_bytes``, the part of them staged by TMA (the kernel's
-  ``Counts`` of the round's launches). A STAP ring's tick:
+  the fused-span kernel, ``weight_bytes`` staged into shared memory (the
+  kernel's ``Counts`` of the round's launches). A STAP ring's tick:
   ``round``, ``valid_slots``.
 
 and the record ``occam.engine.request``, one a request when its ticket

@@ -89,8 +89,9 @@ CASES = [
                          (P, 2, 2, 0, 0)], 224, 3, (), None),
     # one of VGG-19's 512 -> 512 convs on a 28-row map: K = 4,608
     ("vgg-k4608-28", [(C, 3, 1, 1, 512)], 28, 512, (), None),
-    # C_out 6 and 10 (2 mod 4): rows TMA cannot take, so B goes by 4-byte
-    # cp.async copies, in window and in im2col mode
+    # C_out 6 and 10 (2 mod 4): weights padded per launch to rows of 8 and
+    # 12 channels, which TMA takes, the map's extent still C_out, in window
+    # and in im2col mode
     ("cout-2-mod-4", [(C, 3, 1, 1, 6), (C, 3, 1, 1, 10)], 10, 4, (), None),
     # partial K-chunks and channel tiles under TMA: im2col K = 54 in a chunk
     # of 64, C_in 44 in window chunks of 64 (32 at clusters of 8, a tail of
@@ -135,7 +136,7 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, name, specs, hw, ch,
     with TF32 off; bf16 5e-2), output and spills, at out_rows 1 and 2, and
     each call is one counted launch that adds its schedule's rows and
     cluster barriers, and whose CTAs sum on the device the bytes the host
-    counts them to stage by TMA, batch x ``tma_bytes``."""
+    counts them to stage by TMA, batch x ``weight_bytes``."""
     rng = np.random.default_rng(0)
     net = chain(name, specs, in_h=hw, in_w=hw, in_ch=ch,
                 residual_edges=edges)
@@ -157,7 +158,7 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, name, specs, hw, ch,
                                             out_rows=out_rows, srcs=srcs,
                                             spill=spill)
         assert kernel.tma_tally(cuda) - tally == 2 * kernel.last_launch[
-            "tma_bytes"]
+            "weight_bytes"]
         sched = closure.span_schedule(net, a, b, spill=spill,
                                       out_rows=out_rows)
         n_rows, n_barriers = kernel.span_counts(sched)
@@ -168,13 +169,9 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, name, specs, hw, ch,
                                                              n_barriers)
         assert kernel.counts - before == cost
         assert {k: kernel.last_launch[k] for k in (
-            "rows", "barriers", "weight_bytes", "tma_bytes")} == {
+            "rows", "barriers", "weight_bytes")} == {
             "rows": n_rows, "barriers": n_barriers,
-            "weight_bytes": cost.weight_bytes, "tma_bytes": cost.tma_bytes}
-        # B arrives by TMA wherever C_out is a multiple of 4
-        assert cost.tma_bytes == (cost.weight_bytes if all(
-            ly.out_ch % 4 == 0 for ly in net.layers[a:b]
-            if ly.kind == C) else 0)
+            "weight_bytes": cost.weight_bytes}
         want, want_sp = span_plain_call(maps[a], params[a:b], net, a, b,
                                         out_rows=out_rows, srcs=srcs,
                                         spill=spill)
@@ -244,7 +241,7 @@ def test_cuda_kernel_matches_plain_at_cluster_8(cuda, monkeypatch, dtype,
         assert kernel.last_launch["cluster"] == 8
         assert kernel.last_launch["ctas"] == 2 * 8
         assert kernel.tma_tally(cuda) - tally == 2 * kernel.last_launch[
-            "tma_bytes"]
+            "weight_bytes"]
         want, want_sp = span_plain_call(maps[a], params[a:b], net, a, b,
                                         out_rows=out_rows, srcs=srcs,
                                         spill=spill)
@@ -264,9 +261,9 @@ def test_session_on_gpu_equals_run(cuda, policy):
     round size: its lanes equal the eager ``run`` of the same images bit
     for bit, one capture serves every submit size, and each replay adds
     the captured launches, rows, barriers and weight bytes to the kernel's
-    counts. Every weight byte arrives by TMA, and the device's sum of the
-    TMA bytes grows by the round's lanes times ``per_replay``'s each
-    replay, as it does each eager launch."""
+    counts. The device's sum of the bytes staged by TMA grows by the
+    round's lanes times ``per_replay``'s weight bytes each replay, as it
+    does each eager launch."""
     net = chain("res", [(C, 3, 2, 1, 4), (P, 3, 2, 1, 0), (C, 3, 1, 1, 4),
                         (C, 3, 1, 1, 4), (C, 3, 2, 1, 8), (C, 3, 1, 1, 8)],
                 in_h=16, in_w=16, in_ch=3, residual_edges=((2, 4), (4, 6)))
@@ -283,8 +280,8 @@ def test_session_on_gpu_equals_run(cuda, policy):
     dep.run(params, xs[0])
     eager = kernel.counts - before
     assert eager.launches == spans and eager.barriers > 0
-    assert eager.weight_bytes > 0 and eager.tma_bytes == eager.weight_bytes
-    assert kernel.tma_tally(cuda) - tally == 4 * eager.tma_bytes
+    assert eager.weight_bytes > 0
+    assert kernel.tma_tally(cuda) - tally == 4 * eager.weight_bytes
     before = kernel.counts.copy()
     tally = kernel.tma_tally(cuda)
     sess = dep.serve(params, round_batch=4)
@@ -299,7 +296,7 @@ def test_session_on_gpu_equals_run(cuda, policy):
     assert kernel.counts - before == kernel.Counts(
         *(v * (1 + rounds) for v in dataclasses.astuple(eager)))
     assert kernel.tma_tally(cuda) - tally \
-        == 4 * (1 + rounds) * step.per_replay.tma_bytes
+        == 4 * (1 + rounds) * step.per_replay.weight_bytes
     assert sess.compile_count == 1
     for (_t, y), x in zip(res, xs):
         assert y.device.type == "cuda"

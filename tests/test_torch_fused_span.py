@@ -286,10 +286,8 @@ def test_launch_geometry_tiles_rows_once(name, cluster):
         for off in range(1, b - a + 1):
             t = geom.tiles[off]
             rec = maps[off * kernel._M_LEN:(off + 1) * kernel._M_LEN]
-            assert rec[-8:] == [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages,
-                                int(t.window),
-                                int(kernel.tma_box(net.layers[a + off - 1], t)
-                                    is not None)]
+            assert rec[-7:] == [t.tw, t.tc, t.n_ct, t.bk, t.ks, t.stages,
+                                int(t.window)]
 
 
 def _tma_maps(name, cluster):
@@ -324,10 +322,11 @@ def _tma_maps(name, cluster):
                          + sorted({c[0] for c in CASES + CUDA_CASES}))
 def test_tma_boxes_land_b_in_the_padded_stages(name, cluster):
     """For every conv map of the benchmark plans and of the CPU and GPU
-    cases: where C_out is a multiple of 4, B's TMA box is ``tc`` channels
-    (a 16-byte multiple) by at most 256 K rows (by k * k taps in window
-    mode), and the chunk's copies (two, or two a tap, past 256) cover
-    B[kc][tc] exactly, the bytes its mbarrier waits for; the K-chunk
+    cases, ``cout-2-mod-4``'s C_out of 6 and 10 included: B's TMA box is
+    ``tc`` channels (a 16-byte multiple) by at most 256 K rows (by k * k
+    taps in window mode), and the chunk's copies (two, or two a tap, past
+    256) cover B[kc][tc] exactly, the bytes its mbarrier waits for; the
+    K-chunk
     region starts 128-byte aligned, each stage's A part is padded so B
     starts 128-byte aligned, and the next stage too, and the region (the
     stages, then the K-split sums where they do not fit one) fits
@@ -338,18 +337,15 @@ def test_tma_boxes_land_b_in_the_padded_stages(name, cluster):
     for layer, t, stage_off in _tma_maps(name, cluster):
         box = kernel.tma_box(layer, t)
         kc = layer.k ** 2 * t.bk if t.window else t.bk
-        if layer.out_ch % 4:
-            assert box is None
-        else:
-            assert box is not None and box[0] == t.tc and t.tc % 4 == 0
-            assert max(box) <= kernel.TMA_BOX_MAX
-            assert box[1] == min(t.bk, kernel.TMA_BOX_MAX)
-            copies = t.bk // box[1] * (layer.k ** 2 // box[2]
-                                       if t.window else 1)
-            assert len(box) == (3 if t.window else 2)
-            assert copies * int(np.prod(box)) == kc * t.tc
-            assert copies == (1 if t.bk <= 256 else
-                              2 * layer.k ** 2 if t.window else 2)
+        assert box is not None and box[0] == t.tc and t.tc % 4 == 0
+        assert max(box) <= kernel.TMA_BOX_MAX
+        assert box[1] == min(t.bk, kernel.TMA_BOX_MAX)
+        copies = t.bk // box[1] * (layer.k ** 2 // box[2]
+                                   if t.window else 1)
+        assert len(box) == (3 if t.window else 2)
+        assert copies * int(np.prod(box)) == kc * t.tc
+        assert copies == (1 if t.bk <= 256 else
+                          2 * layer.k ** 2 if t.window else 2)
         twp = -(-t.tw // 4) * 4
         b_off, st = kernel._stage_floats(twp, t.tc, layer.k, layer.stride,
                                          t.bk, t.window)
@@ -394,6 +390,19 @@ def test_launch_geometry_raises_outside_the_kernel():
         kernel.row_tile("conv", 33, 3, 8, 8, 16)
     with pytest.raises(ValueError, match="no tiling"):
         kernel.row_tile("conv", 3, 3, 4096, 512, 16)
+
+
+def test_a_row_wider_than_the_boxes_of_a_cluster_raises():
+    """A CTA's channels are one TMA box edge at most (256): a 4-wide row
+    of 4,096 channels takes tiles of 256 in clusters of 16, and one of
+    4,100 channels, which tiles of 260 would serve, raises as any row no
+    tiling fits; so does a pool's."""
+    assert kernel.row_tile("conv", 3, 64, 4, 4096, 16).tc == 256
+    for kind in ("conv", "pool"):
+        with pytest.raises(ValueError, match="no tiling"):
+            kernel.row_tile(kind, 3, 64, 4, 4100, 16)
+    assert kernel.tma_box(zoo.resnet18().layers[1], kernel.row_tile(
+        "pool", 3, 64, 56, 64, 16)) is None
 
 
 @pytest.mark.parametrize("sizes", [(4,), (), (16, 12)])

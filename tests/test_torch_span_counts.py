@@ -2,12 +2,12 @@
 
 One launch's rows, cluster barriers and staged weight bytes
 (``kernel.launch_counts``) against a hand count, its weight bytes against
-a replay of the copies ``conv_group`` issues and its TMA bytes against a
-replay of its TMA boxes; the benchmark plans' counts; the record's
-arithmetic; a serving step adding its recorded counts once a replay; and
-the round span carrying the weight and TMA bytes and the deployment's
-boundary bytes per image. The counts of a
-launch on the card are tested in ``tests/test_torch_cuda.py``.
+a replay of the TMA boxes ``conv_group`` issues, and those boxes, read
+from the padded weights, against B; the benchmark plans' counts; the
+record's arithmetic; a serving step adding its recorded counts once a
+replay; and the round span carrying the weight bytes and the
+deployment's boundary bytes per image. The counts of a launch on the card
+are tested in ``tests/test_torch_cuda.py``.
 """
 import dataclasses
 
@@ -57,34 +57,6 @@ def test_launch_counts_equal_a_hand_count(out_rows):
     assert c.weight_bytes == (10 * 10 + 10 * 10 + 5 * 10) * 4 * 36 * 4
 
 
-def _copied_bytes(layer, t, cluster):
-    """One row's bytes of weights that ``conv_group``'s ``load_b`` copies
-    into shared memory over every CTA and K-chunk, replayed from its
-    loops: a CTA without a tile copies nothing, and a K index past K or a
-    column past the CTA's ``nc`` is a zero fill that moves no byte."""
-    k, c_in, c_out = layer.k, layer.in_ch, layer.out_ch
-    kdim = k * k * c_in
-    kc = k * k * t.bk if t.window else t.bk
-    n_chunks = -(-c_in // t.bk) if t.window else -(-kdim // t.bk)
-    vec_b = c_out % 4 == 0
-    total = 0
-    for _x0, nx, _c0, nc in t.tiles(cluster, layer.out_w, c_out):
-        if nx <= 0 or nc <= 0:
-            continue
-        # bytes of one K index's copies: 16 a column group of 4, or 4 a
-        # column
-        per_k = sum(16 for q in range(0, t.tc, 4) if q < nc) if vec_b \
-            else sum(4 for q in range(t.tc) if q < nc)
-        kk = np.arange(kc)
-        for c in range(n_chunks):
-            if t.window:
-                ok = c * t.bk + (kk & (t.bk - 1)) < c_in
-            else:
-                ok = c * t.bk + kk < kdim
-            total += int(ok.sum()) * per_k
-    return total
-
-
 def _boxed_bytes(layer, t, cluster):
     """One row's in-range bytes of the TMA boxes ``conv_group``'s
     ``load_b_tma`` issues over every CTA and K-chunk, replayed from its
@@ -128,11 +100,11 @@ def _plan_spans(name):
 @pytest.mark.parametrize("cluster", kernel.CLUSTER_SIZES)
 @pytest.mark.parametrize("name", ["vggnet", "resnet18", "alexnet"]
                          + [c[0] for c in CUDA_CASES])
-def test_weight_bytes_replay_the_copies_of_conv_group(name, cluster):
+def test_weight_bytes_replay_the_boxes_of_conv_group(name, cluster):
     """For every span of the benchmark plans and of the GPU parity cases,
-    the counted weight bytes equal the bytes ``load_b`` copies: each
-    conv row the schedule produces, times its copies over the CTAs and
-    K-chunks."""
+    the counted weight bytes equal the in-range bytes of the boxes
+    ``load_b_tma`` issues: each conv row the schedule produces, times its
+    boxes over the CTAs and K-chunks."""
     net, spans = _plan_spans(name)
     for a, b, spill in spans:
         sched = closure.span_schedule(net, a, b, spill=spill)
@@ -144,56 +116,92 @@ def test_weight_bytes_replay_the_copies_of_conv_group(name, cluster):
                 # pool leaves its last row unread)
                 produced = sum(len(step[off - 1]) for step in sched.steps)
                 assert produced <= net.map_shape(a + off)[0]
-                want += produced * _copied_bytes(layer, geom.tiles[off],
-                                                 cluster)
+                want += produced * _boxed_bytes(layer, geom.tiles[off],
+                                                cluster)
         got = kernel.launch_counts(net, a, b, sched, geom)
-        assert got.weight_bytes == want, (name, a, b)
+        assert got.weight_bytes == want > 0, (name, a, b)
+
+
+def _box_copies(layer, t, c, c0, weights):
+    """Stage B of K-chunk ``c`` of the CTA whose channels start at ``c0``,
+    as ``load_b_tma``'s boxes (:func:`kernel.tma_box`) land it: the
+    tensor map's view of the flat ``weights`` (rows of ``weights``' last
+    dimension, extents the true (C_out, C_in or K, k * k)), each box's
+    elements past an extent zero-filled. NaN where no box lands."""
+    k, c_in, c_out = layer.k, layer.in_ch, layer.out_ch
+    pitch = weights.shape[-1]
+    flat = weights.reshape(-1)
+    box = kernel.tma_box(layer, t)
+    kc = k * k * t.bk if t.window else t.bk
+    bs = np.full(kc * t.tc, np.nan, np.float32)
+    dims = (c_out, c_in, k * k) if t.window else (c_out, k * k * c_in, 1)
+    depth = box[2] if t.window else 1
+    k0 = c * t.bk
+    z, y, x = np.ix_(range(depth), range(box[1]), range(box[0]))
+    for t0 in range(0, k * k if t.window else 1, depth):
+        for h in range(0, t.bk, box[1]):
+            gx, gy, gz = c0 + x, k0 + h + y, t0 + z
+            ok = (gx < dims[0]) & (gy < dims[1]) & (gz < dims[2])
+            idx = np.where(ok, (gz * c_in + gy) * pitch + gx, 0)
+            dst = (t0 * t.bk + h) * t.tc
+            bs[dst:dst + ok.size] = np.where(ok, flat[idx], 0.0).reshape(-1)
+    return bs.reshape(kc, t.tc)
 
 
 @pytest.mark.parametrize("cluster", kernel.CLUSTER_SIZES)
 @pytest.mark.parametrize("name", ["vggnet", "resnet18", "alexnet"]
                          + [c[0] for c in CUDA_CASES])
-def test_tma_bytes_replay_the_boxes_of_conv_group(name, cluster):
-    """For every span of the benchmark plans and of the GPU parity cases,
-    the counted TMA bytes equal the in-range bytes of the boxes
-    ``load_b_tma`` issues, over the convs whose C_out is a multiple of 4;
-    a box moves the bytes the copies of ``load_b`` would, so on the
-    benchmark plans every weight byte arrives by TMA, and on a net whose
-    C_out is 2 mod 4 none does."""
+def test_boxes_read_b_from_the_padded_weights(name, cluster):
+    """For every conv of the benchmark plans and of the GPU parity cases
+    (``cout-2-mod-4``'s C_out of 6 and 10 included), the weights as the
+    tensor map reads them (:func:`kernel.tma_weights`: rows padded to a
+    multiple of 4 channels, 16-byte aligned) and each CTA's boxes of the
+    first and the last K-chunk land B exactly: the K-chunk's rows of the
+    unpadded (k * k * C_in, C_out) weights at the CTA's channels, zero
+    past C_in (or K) and past C_out."""
     net, spans = _plan_spans(name)
-    for a, b, spill in spans:
-        sched = closure.span_schedule(net, a, b, spill=spill)
+    rng = np.random.default_rng(0)
+    for a, b, _spill in spans:
         geom = kernel.span_geometry(net, a, b, cluster)
-        want = 0
         for off, layer in enumerate(net.layers[a:b], start=1):
+            if layer.kind != "conv":
+                continue
             t = geom.tiles[off]
-            if layer.kind == "conv":
-                boxed = _boxed_bytes(layer, t, cluster)
-                assert boxed == _copied_bytes(layer, t, cluster)
-                if kernel.tma_box(layer, t) is not None:
-                    produced = sum(len(step[off - 1]) for step in sched.steps)
-                    want += produced * boxed
-        got = kernel.launch_counts(net, a, b, sched, geom)
-        assert got.tma_bytes == want, (name, a, b)
-        if name in ("vggnet", "resnet18", "alexnet"):
-            assert got.tma_bytes == got.weight_bytes > 0
-        if name == "cout-2-mod-4":
-            assert got.tma_bytes == 0 < got.weight_bytes
+            k, c_in, c_out = layer.k, layer.in_ch, layer.out_ch
+            w = rng.standard_normal((k, k, c_in, c_out), np.float32)
+            padded = kernel.tma_weights(torch.from_numpy(w))
+            assert padded.shape == (k, k, c_in, -(-c_out // 4) * 4)
+            assert padded.data_ptr() % 16 == 0 and padded.is_contiguous()
+            w2 = w.reshape(k * k * c_in, c_out)
+            n_chunks = -(-c_in // t.bk) if t.window \
+                else -(-k * k * c_in // t.bk)
+            for _x0, nx, c0, nc in t.tiles(cluster, layer.out_w, c_out):
+                if nx <= 0 or nc <= 0:
+                    continue
+                for c in sorted({0, n_chunks - 1}):
+                    got = _box_copies(layer, t, c, c0, padded.numpy())
+                    want = np.zeros_like(got)
+                    kk = np.arange(got.shape[0])
+                    if t.window:
+                        ci = c * t.bk + kk % t.bk
+                        rows = kk // t.bk * c_in + ci
+                        ok = ci < c_in
+                    else:
+                        rows = c * t.bk + kk
+                        ok = rows < k * k * c_in
+                    want[ok, :nc] = w2[rows[ok], c0:c0 + nc]
+                    np.testing.assert_array_equal(got, want)
 
 
 # what one image of each benchmark plan costs: the kernel's launches,
-# rows, barriers, weight bytes and TMA bytes (all of them: every conv's
-# C_out is a multiple of 4), and the deployment's boundary bytes (the
-# plan's feature traffic)
+# rows, barriers and weight bytes, and the deployment's boundary bytes
+# (the plan's feature traffic)
 PLAN_COUNTS = {
     "vggnet": ([6, 11, 12, 13, 14, 16, 17, 18, 19],
-               kernel.Counts(10, 1_281, 891, 3_051_159_552, 3_051_159_552),
-               18_364_416),
+               kernel.Counts(10, 1_281, 891, 3_051_159_552), 18_364_416),
     "resnet18": ([12, 15, 16, 17],
-                 kernel.Counts(5, 588, 229, 487_538_688, 487_538_688),
-                 2_207_744),
-    "alexnet": ([], kernel.Counts(1, 167, 49, 154_581_504, 154_581_504),
-                655_212),
+                 kernel.Counts(5, 588, 229, 487_538_688), 2_207_744),
+    "alexnet": ([], kernel.Counts(1, 167, 49, 154_581_504), 655_212),
 }
 
 
@@ -230,7 +238,7 @@ def test_counts_record_adds_subtracts_and_resets():
     c.reset(before)
     assert c == before and c is not before
     c.reset()
-    assert dataclasses.astuple(c) == (0, 0, 0, 0, 0)
+    assert dataclasses.astuple(c) == (0, 0, 0, 0)
 
 
 class _Graph:
@@ -280,14 +288,14 @@ def test_a_replay_adds_the_recorded_counts_once(small):
 def test_round_span_carries_the_counts_per_image(small):
     """While a profiler records, every round carries the deployment's
     boundary bytes per image on ``occam.session.round``, and a round that
-    launches the kernel its step's weight bytes and TMA bytes per image; a
-    round on the CPU's plain path launches nothing and carries neither."""
+    launches the kernel its step's weight bytes per image; a round on the
+    CPU's plain path launches nothing and carries none."""
     dep, params, xs = small
     boundary = dep._per_image_profile().total_bytes
     assert boundary == dep.plan.predicted.feature_elems * 4
     trace.clear()
     try:
-        for per in (kernel.Counts(), kernel.Counts(2, 40, 12, 5_000, 4_000)):
+        for per in (kernel.Counts(), kernel.Counts(2, 40, 12, 5_000)):
             with dep.serve(params, round_batch=2) as sess:
                 sess._step.per_replay = per
                 with torch.profiler.profile(
@@ -299,10 +307,9 @@ def test_round_span_carries_the_counts_per_image(small):
             trace.clear()
             assert [r.attrs["lanes"] for r in rounds] == [2, 1]
             for r in rounds:
+                assert "weight_tma_bytes" not in r.attrs
                 got = (r.attrs.get("weight_bytes"),
-                       r.attrs.get("weight_tma_bytes"),
                        r.attrs.get("boundary_bytes"))
-                assert got == ((5_000, 4_000) if per.launches
-                               else (None, None)) + (boundary,)
+                assert got == (5_000 if per.launches else None, boundary)
     finally:
         trace.clear()
